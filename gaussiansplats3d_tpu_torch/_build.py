@@ -19,11 +19,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("composite_fwd",)
+KERNELS = ("composite_fwd", "composite_bwd")
 # No --use_fast_math: __expf/__logf would flip the compositor's hard
 # thresholds (min_alpha, the 0.999 clamp, the 1e-4 exit).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -72,8 +73,9 @@ def build(name: str) -> Path:
 
 
 def build_all(names=KERNELS) -> list[Path]:
-    """Build every kernel."""
-    return [build(name) for name in names]
+    """Build every kernel, one ``nvcc`` per source, all started together."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

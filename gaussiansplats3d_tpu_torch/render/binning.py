@@ -1,5 +1,5 @@
-"""Tile binning + depth sort into per-tile pair records, forward only
-(counterpart of the JAX package's ``render/binning.py::bin_sort_records``).
+"""Tile binning + depth sort into per-tile pair records (counterpart of the
+JAX package's ``render/binning.py::bin_sort_records``).
 
 Every visible splat's screen AABB is expanded into (tile, splat) pairs in a
 static slot layout of S = lanes*N + aux_cap + pad slots (a multiple of
@@ -24,6 +24,14 @@ The record codecs of ``mixed`` and ``packed`` precision change pixels, so
 each is applied here as an elementwise quantise-then-dequantise with the
 JAX package's rounding; in packed mode the tile rects come from the
 quantised positions and radii, as the compositor will read them.
+
+Gradients: every codec is straight-through (its forward bits, the
+cotangent passed on unchanged in float32, as the JAX package's "packing is
+forward-only"), and the record gather's backward is a scatter-add of each
+pair's cotangent into its source splat.  That stands in for the JAX
+package's alignment sort; its bf16 packing of the non-position cotangents
+under ``mixed``/``packed`` is a TPU saving that the port does not copy.
+The support box (rx, ry) and the rects stay gradient-free.
 
 S stays static, so nothing here waits for the device.
 """
@@ -51,6 +59,27 @@ _COLOR_U8_SCALE = 127.5         # color channel step 1/127.5 over [0, 2]
 
 # --- codecs: quantise-then-dequantise, elementwise on float32 -------------
 
+class _StraightThrough(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, codec):
+        return codec(v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _straight_through(codec):
+    """The codec's quantise-dequantise bits forward; the cotangent
+    unchanged backward, in float32 (a cast or an integer round trip would
+    round it or cut it off)."""
+    @functools.wraps(codec)
+    def apply(v, *args):
+        return _StraightThrough.apply(v, lambda x: codec(x, *args))
+    return apply
+
+
+@_straight_through
 def f16_round(v: torch.Tensor) -> torch.Tensor:
     """float32 -> float16 (round to nearest even) -> float32."""
     return v.to(torch.float16).to(torch.float32)
@@ -69,6 +98,7 @@ def px_scale_for(cfg: RenderConfig) -> float:
     return 16.0 if span * 16.0 <= 65536.0 else _PX_SCALE
 
 
+@_straight_through
 def px_round(v: torch.Tensor, scale: float) -> torch.Tensor:
     """The packed-mode u16 fixed-point position codec (idempotent)."""
     q = torch.clamp((v + _PX_OFFSET) * scale, 0.0, 65535.0).to(torch.int64)
@@ -134,6 +164,7 @@ def _rad_decode_table(device: torch.device) -> torch.Tensor:
         torch.int32).view(torch.float32).to(device)
 
 
+@_straight_through
 def rad_round_u8(r: torch.Tensor) -> torch.Tensor:
     """The packed-mode u8 log-radius codec: rounds UP (the box only grows,
     which is lossless) and is idempotent.  log2 is taken as
@@ -143,6 +174,7 @@ def rad_round_u8(r: torch.Tensor) -> torch.Tensor:
     return _rad_decode_table(r.device)[code.long()]
 
 
+@_straight_through
 def u8_round(v: torch.Tensor, scale: float) -> torch.Tensor:
     """The packed-mode u8 color/opacity codec: round half to even at
     ``scale`` steps, clamped to [0, 255]."""

@@ -1,8 +1,8 @@
-"""Tile compositor, forward: the hand-written CUDA kernel B1, its plain
-PyTorch version, and the launch counter (counterpart of the JAX package's
-``render/pallas_rasterize.py``).
+"""Tile compositor, forward and backward: the hand-written CUDA kernels B1
+and B2, their plain PyTorch versions, and the launch counters (counterpart
+of the JAX package's ``render/pallas_rasterize.py``).
 
-**Replaces** ``gaussiansplats3d_tpu/render/pallas_rasterize.py::
+**B1 replaces** ``gaussiansplats3d_tpu/render/pallas_rasterize.py::
 _composite_fwd`` (the Pallas kernel behind ``composite_tiles``).  The kernel
 source is ``csrc/composite_fwd.cu``; it computes what the Pallas kernel
 computes without its TPU mechanics (no DMA semaphores, no bf16-limb MXU
@@ -11,23 +11,37 @@ tile's records staged 128 pairs at a time in shared memory, and a float32
 front-to-back blend per pixel.  It keeps the Pallas kernel's floor-aligned
 128-pair chunk windows, its per-chunk ``_CS_FLOOR`` clamp on log T and its
 ``max T <= 1e-4`` tile exit, so ``logt`` and ``exit_k`` are the residuals
-the backward kernel (B2, next) replays from.
+B2 replays from.
 
-**What bounds it on the H100.**  Each record is read once per tile that
+**B2 replaces** ``pallas_rasterize.py::_composite_bwd`` (kernel
+``_bwd_one_tile``).  Source ``csrc/composite_bwd.cu``: the same block and
+thread layout; chunks ``exit_k - 1 .. 0`` in reverse, each thread first
+recomputing the chunk's log-transmittance sum with B1's own loop, then
+sweeping the chunk backwards with the entry log T rebuilt by subtracting
+the clamped sum; each pair's gradient terms are summed over the tile's
+pixels by warp shuffles and shared-memory adds, and written once to the
+pair's slot (a slot lies in one tile's window only, so no global atomics
+and no read-modify-write of shared boundary chunks).
+
+**What bounds them on the H100.**  Each record is read once per tile that
 holds it (44-48 bytes a pair), while each pair is evaluated at every pixel
-of the tile until the tile exits (1024 evaluations of ~14 float32
-operations and an ``exp`` at tile size 32): arithmetic, not memory, bounds
-it.  The design answers that only simply for now: the cheap support-box test
-rejects most pair-pixel evaluations before the ``exp``, records come from
-shared memory as broadcasts, and the whole tile stops at the exit.  Making
-it fast (several pixels per thread, warp-level culling of pairs, a tile
-size chosen for the card) is later work.
+of the tile until the tile exits (1024 evaluations at tile size 32):
+arithmetic, not memory, bounds both.  The designs answer that only simply
+for now: the cheap support-box test rejects most pair-pixel evaluations
+before the ``exp``, records come from shared memory as broadcasts, the
+whole tile stops at the exit, and B2 skips a pair's reduction in a warp
+where no pixel is inside its cut-offs.  Making them fast (several pixels per
+thread, warp-level culling of pairs, a tile size chosen for the card) is
+later work.
 
-**Plain version** (:func:`composite_fwd_torch`): the same function in
-PyTorch, groups of tiles at a time with a within-chunk ``cumsum`` of
-``log1p(-alpha)`` (as the JAX package's ``rasterize.py`` does) plus the same
-chunk windows, exit and outputs.  The wrapper uses it for CPU tensors only;
-for CUDA tensors it launches the kernel or raises.
+**Plain versions** (:func:`composite_fwd_torch`,
+:func:`composite_bwd_torch`): the same functions in PyTorch, groups of
+tiles at a time in lockstep with the same chunk windows, exit and outputs.
+Each chunk evaluates only the pair-pixel entries inside the pairs' support
+boxes (the rest have alpha 0) and takes the in-chunk transmittance prefix
+and the backward's suffix as float64 run sums per pixel.  The wrappers use
+them for CPU tensors only; for CUDA tensors they launch the kernels or
+raise.
 """
 
 from __future__ import annotations
@@ -54,11 +68,14 @@ _GROUP_SIZE = 64
 launches = 0
 """Launches of the CUDA kernel B1 made by :func:`composite_fwd` (the plain
 version does not count)."""
+bwd_launches = 0
+"""Launches of the CUDA kernel B2 made by :func:`composite_bwd`."""
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, bwd_launches
     launches = 0
+    bwd_launches = 0
 
 
 def _check_inputs(records, starts, counts, ids, cfg: RenderConfig):
@@ -99,6 +116,18 @@ def _kernel():
     return fn
 
 
+@functools.cache
+def _bwd_kernel():
+    """B2's C entry point, built and loaded on first use."""
+    from .. import _build
+    fn = _build.load("composite_bwd").composite_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
+    return fn
+
+
 def composite_fwd_cuda(records, tile_starts, tile_counts, tile_ids,
                        cfg: RenderConfig):
     """Launch B1 on the current stream.  Inputs as :func:`composite_fwd`,
@@ -130,24 +159,77 @@ def composite_fwd_cuda(records, tile_starts, tile_counts, tile_ids,
     return chans, logt, exit_k
 
 
-def _tile_pixel_coords(tile_ids, cfg: RenderConfig):
-    """GL pixel centres of each tile, [G, P] each."""
-    ts = cfg.tile_size
+def _tile_origins(tile_ids, cfg: RenderConfig):
+    """Pixel x and y of each tile's corner, [G] float32 each."""
+    ts = float(cfg.tile_size)
     tx = (tile_ids % cfg.tiles_x).to(torch.float32)
     ty = torch.div(tile_ids, cfg.tiles_x, rounding_mode="floor").to(
         torch.float32)
-    pid = torch.arange(ts * ts, device=tile_ids.device)
-    ix = (pid % ts).to(torch.float32)
-    iy = torch.div(pid, ts, rounding_mode="floor").to(torch.float32)
-    return (tx[:, None] * float(ts) + ix[None, :] + 0.5,
-            ty[:, None] * float(ts) + iy[None, :] + 0.5)
+    return tx * ts, ty * ts
+
+
+def _chunk_pairs(rec, window, x0, y0, nc, cfg: RenderConfig):
+    """The (tile, pixel, pair) entries of one chunk of a group of tiles
+    that lie inside the pair's rx/ry support box, ordered by tile, pixel,
+    then pair: the others have alpha 0 and add nothing.
+
+    ``rec [NF, G, C]`` holds the chunk's records, ``window [G, C]`` which
+    lanes belong to the tile.  Returns a dict of [M] tensors: ``tile``,
+    ``seg`` (tile * P + pixel), ``lane``, ``rec`` ([NF, M]), ``dx``,
+    ``dy``, ``e`` = exp(-g / 2) and ``alpha``, clamped to 0.999 and 0
+    where g > 8 or alpha < min_alpha, with the kernels' arithmetic."""
+    ts = cfg.tile_size
+    pix = torch.arange(ts, device=rec.device).to(torch.float32)
+    # GL pixel centres, as (corner + index) + 0.5
+    dxc = (x0[:, None] + pix + 0.5)[:, None, :] - rec[0][..., None]
+    dyr = (y0[:, None] + pix + 0.5)[:, None, :] - rec[1][..., None]
+    in_x = torch.abs(dxc) <= rec[6 + nc][..., None]             # [G, C, x]
+    in_y = torch.abs(dyr) <= rec[7 + nc][..., None]             # [G, C, y]
+    in_y = in_y.permute(0, 2, 1) & window[:, None, :]           # [G, y, C]
+    box = in_y[:, :, None, :] & in_x.permute(0, 2, 1)[:, None]
+    tile, iy, ix, lane = box.nonzero(as_tuple=True)             # [G, y, x, C]
+    r = rec[:, tile, lane]                                      # [NF, M]
+    dx, dy = dxc[tile, lane, ix], dyr[tile, lane, iy]
+    g = r[2] * dx * dx + 2.0 * r[3] * dx * dy + r[4] * dy * dy
+    e = torch.exp(-0.5 * g)
+    alpha = r[5 + nc] * e
+    keep = (g <= GAUSSIAN_CUTOFF) & (alpha >= cfg.min_alpha)
+    alpha = torch.where(keep, torch.clamp(alpha, max=ALPHA_CLAMP),
+                        torch.zeros_like(alpha))
+    return {"tile": tile, "seg": tile * (ts * ts) + iy * ts + ix,
+            "lane": lane, "rec": r, "dx": dx, "dy": dy, "e": e,
+            "alpha": alpha}
+
+
+def _seg_scan(v, seg):
+    """Sums within runs of equal ``seg`` (entries grouped by seg), taken
+    in float64: each entry's exclusive prefix and exclusive suffix in its
+    run, and the run totals as ``(unique seg, total)``; float32 out."""
+    m = v.shape[0]
+    if m == 0:
+        return v, v, seg, v
+    idx = torch.arange(m, device=v.device)
+    is_first = torch.ones(m, dtype=torch.bool, device=v.device)
+    is_first[1:] = seg[1:] != seg[:-1]
+    is_last = torch.ones_like(is_first)
+    is_last[:-1] = is_first[1:]
+    first = torch.cummax(torch.where(is_first, idx, 0), 0).values
+    c = torch.cumsum(v.double(), 0)
+    before = c - v.double()
+    last_c = c[is_last]
+    run_end = torch.repeat_interleave(last_c, torch.bincount(
+        torch.cumsum(is_first.long(), 0) - 1))
+    return ((before - before[first]).float(), (run_end - c).float(),
+            seg[is_last], (last_c - before[is_first]).float())
 
 
 def composite_fwd_torch(records, tile_starts, tile_counts, tile_ids,
                         cfg: RenderConfig):
     """The plain PyTorch version of B1, on any device: same chunk windows,
     exit rule, ``_CS_FLOOR`` and outputs.  Tiles go ``_GROUP_SIZE`` at a
-    time, each group's chunk loop in lockstep."""
+    time, each group's chunk loop in lockstep; each chunk evaluates only
+    the pair-pixel entries inside the support boxes (:func:`_chunk_pairs`)
+    and takes the in-chunk transmittance prefix as a run sum per pixel."""
     _check_inputs(records, tile_starts, tile_counts, tile_ids, cfg)
     nf, s = records.shape
     nc = nf - 8
@@ -160,15 +242,16 @@ def composite_fwd_torch(records, tile_starts, tile_counts, tile_ids,
     lane = torch.arange(CHUNK, device=dev)
     for g0 in range(0, t, _GROUP_SIZE):
         g1 = min(g0 + _GROUP_SIZE, t)
+        n_g = g1 - g0
         start = tile_starts[g0:g1].long()
         count = tile_counts[g0:g1].long()
-        px, py = _tile_pixel_coords(tile_ids[g0:g1].long(), cfg)
+        x0, y0 = _tile_origins(tile_ids[g0:g1].long(), cfg)
         start_chunk = torch.div(start, CHUNK, rounding_mode="floor")
         num_chunks = torch.div(start % CHUNK + count + CHUNK - 1, CHUNK,
                                rounding_mode="floor")
-        trans = torch.ones_like(px)
-        lt = torch.zeros_like(px)
-        col = torch.zeros((g1 - g0, nc + 1, p), dtype=torch.float32,
+        trans = torch.ones((n_g * p,), dtype=torch.float32, device=dev)
+        lt = torch.zeros_like(trans)
+        col = torch.zeros((nc + 1, n_g * p), dtype=torch.float32,
                           device=dev)
         k_done = torch.zeros_like(start)
         active = num_chunks > 0
@@ -178,34 +261,25 @@ def composite_fwd_torch(records, tile_starts, tile_counts, tile_ids,
             rec = records[:, torch.clamp(gpos, max=s - 1)]       # [NF, G, C]
             window = (gpos >= start[:, None]) & (
                 gpos < (start + count)[:, None]) & active[:, None]
-            mx, my = rec[0][..., None], rec[1][..., None]
-            ca, cb, cc = rec[2][..., None], rec[3][..., None], rec[4][..., None]
-            opa = rec[5 + nc][..., None]
-            rx, ry = rec[6 + nc][..., None], rec[7 + nc][..., None]
-            dx = px[:, None, :] - mx                              # [G, C, P]
-            dy = py[:, None, :] - my
-            g = ca * dx * dx + 2.0 * cb * dx * dy + cc * dy * dy
-            alpha = opa * torch.exp(-0.5 * g)
-            keep = (window[..., None] & (g <= GAUSSIAN_CUTOFF)
-                    & (alpha >= cfg.min_alpha)
-                    & (torch.abs(dx) <= rx) & (torch.abs(dy) <= ry))
-            alpha = torch.where(keep, torch.clamp(alpha, max=ALPHA_CLAMP),
-                                torch.zeros_like(alpha))
+            ent = _chunk_pairs(rec, window, x0, y0, nc, cfg)
+            seg, alpha = ent["seg"], ent["alpha"]
             logw = torch.log1p(-alpha)
-            excl = torch.cumsum(logw, dim=1) - logw
-            w = alpha * (torch.exp(excl) * trans[:, None, :])
-            chan = torch.cat([rec[5:5 + nc], torch.ones_like(rec[:1])])
-            col = col + torch.einsum("gcp,kgc->gkp", w, chan)
-            csum = logw.sum(dim=1)                                # [G, P]
-            # inactive tiles composited nothing: csum is 0 there
+            excl, _, seg_u, total = _seg_scan(logw, seg)
+            w = alpha * (torch.exp(excl) * trans[seg])
+            chan = torch.cat([ent["rec"][5:5 + nc],
+                              torch.ones_like(alpha)[None]])
+            col.index_add_(1, seg, chan * w)
+            # pixels no pair reached composited nothing: csum is 0 there
+            csum = torch.zeros_like(trans)
+            csum[seg_u] = total
             trans = trans * torch.exp(csum)
             lt = lt + torch.clamp(csum, min=_CS_FLOOR)
             k += 1
             k_done = torch.where(active, torch.full_like(k_done, k), k_done)
             active = (active & (k < num_chunks)
-                      & (trans.amax(dim=1) > _EXIT_T))
-        chans[g0:g1] = col
-        logt[g0:g1] = lt
+                      & (trans.view(n_g, p).amax(dim=1) > _EXIT_T))
+        chans[g0:g1] = col.view(nc + 1, n_g, p).permute(1, 0, 2)
+        logt[g0:g1] = lt.view(n_g, p)
         exit_k[g0:g1] = k_done.to(torch.int32)
     return chans, logt, exit_k
 
@@ -236,25 +310,183 @@ def composite_fwd(records, tile_starts, tile_counts, tile_ids,
     raise ValueError(f"no compositor for device {records.device}")
 
 
+def _check_bwd_inputs(records, starts, counts, ids, logt, exit_k, gchans,
+                      cfg: RenderConfig):
+    _check_inputs(records, starts, counts, ids, cfg)
+    t = starts.shape[0]
+    p = cfg.tile_size * cfg.tile_size
+    nc = records.shape[0] - 8
+    for name, v, shape, dtype in (
+            ("logt", logt, (t, p), torch.float32),
+            ("exit_k", exit_k, (t,), torch.int32),
+            ("gchans", gchans, (t, nc + 1, p), torch.float32)):
+        if v.dtype != dtype or tuple(v.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)} {dtype}, got "
+                             f"{list(v.shape)} {v.dtype}")
+        if v.device != records.device:
+            raise ValueError(f"{name} is on {v.device}, records on "
+                             f"{records.device}")
+        if not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def composite_bwd_cuda(records, tile_starts, tile_counts, tile_ids, logt,
+                       exit_k, gchans, cfg: RenderConfig):
+    """Launch B2 on the current stream.  Inputs as :func:`composite_bwd`,
+    all on one CUDA device; returns grad_records ``[NC + 8, S]``."""
+    global bwd_launches
+    _check_bwd_inputs(records, tile_starts, tile_counts, tile_ids, logt,
+                      exit_k, gchans, cfg)
+    if not records.is_cuda:
+        raise ValueError("composite_bwd_cuda needs CUDA tensors")
+    p = cfg.tile_size * cfg.tile_size
+    if p % 32:
+        raise ValueError("B2 needs tile_size^2 to be a multiple of 32 "
+                         "(whole warps)")
+    fn = _bwd_kernel()
+    nf, s = records.shape
+    t = tile_starts.shape[0]
+    dev = records.device
+    # slots outside every window and chunks past exit_k stay 0
+    grad = torch.zeros((nf, s), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(records.data_ptr(), s, nf - 8, tile_starts.data_ptr(),
+                 tile_counts.data_ptr(), tile_ids.data_ptr(),
+                 logt.data_ptr(), exit_k.data_ptr(), gchans.data_ptr(), t,
+                 cfg.tile_size, cfg.tiles_x, cfg.min_alpha, _CS_FLOOR,
+                 grad.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+    bwd_launches += 1
+    return grad
+
+
+def composite_bwd_torch(records, tile_starts, tile_counts, tile_ids, logt,
+                        exit_k, gchans, cfg: RenderConfig):
+    """The plain PyTorch version of B2, on any device: the reverse replay
+    of chunks ``exit_k - 1 .. 0`` on B1's semantics, over the same
+    in-box entries as :func:`composite_fwd_torch`.  Tiles go
+    ``_GROUP_SIZE`` at a time, each group's chunk loop in lockstep."""
+    _check_bwd_inputs(records, tile_starts, tile_counts, tile_ids, logt,
+                      exit_k, gchans, cfg)
+    nf, s = records.shape
+    nc = nf - 8
+    t = tile_starts.shape[0]
+    p = cfg.tile_size * cfg.tile_size
+    dev = records.device
+    grad = torch.zeros((nf, s), dtype=torch.float32, device=dev)
+    lane = torch.arange(CHUNK, device=dev)
+    for g0 in range(0, t, _GROUP_SIZE):
+        g1 = min(g0 + _GROUP_SIZE, t)
+        n_g = g1 - g0
+        start = tile_starts[g0:g1].long()
+        count = tile_counts[g0:g1].long()
+        k_exit = exit_k[g0:g1].long()
+        x0, y0 = _tile_origins(tile_ids[g0:g1].long(), cfg)
+        start_chunk = torch.div(start, CHUNK, rounding_mode="floor")
+        gch = gchans[g0:g1].permute(1, 0, 2).reshape(nc + 1, n_g * p)
+        lt_after = logt[g0:g1].reshape(-1).clone()
+        sg = torch.zeros_like(lt_after)     # sum of w cg behind each pair
+        for k in range(int(k_exit.max()) - 1, -1, -1):
+            active = k < k_exit                                # [G]
+            gpos = (start_chunk + k)[:, None] * CHUNK + lane[None, :]
+            rec = records[:, torch.clamp(gpos, max=s - 1)]     # [NF, G, C]
+            window = (gpos >= start[:, None]) & (
+                gpos < (start + count)[:, None]) & active[:, None]
+            ent = _chunk_pairs(rec, window, x0, y0, nc, cfg)
+            seg, alpha, r = ent["seg"], ent["alpha"], ent["rec"]
+            dx, dy = ent["dx"], ent["dy"]
+            logw = torch.log1p(-alpha)
+            excl, _, seg_u, total = _seg_scan(logw, seg)
+            csum = torch.zeros_like(lt_after)
+            csum[seg_u] = total
+            lt_before = torch.where(
+                active.repeat_interleave(p),
+                lt_after - torch.clamp(csum, min=_CS_FLOOR), lt_after)
+            t_i = torch.exp(excl + lt_before[seg])
+            w = alpha * t_i
+            cg = gch[nc][seg] + sum(r[5 + c] * gch[c][seg]
+                                    for c in range(nc))
+            u = w * cg
+            _, behind, _, _ = _seg_scan(u, seg)
+            d_alpha = t_i * cg - (behind + sg[seg]) / torch.clamp(
+                1.0 - alpha, min=1e-6)
+            gate = (alpha > 0.0) & (alpha < ALPHA_CLAMP)
+            d_alpha = torch.where(gate, d_alpha, torch.zeros_like(d_alpha))
+            d_quad = d_alpha * (-0.5 * alpha)
+            ca, cb, cc = r[2], r[3], r[4]
+            terms = torch.stack([
+                d_quad * (-2.0) * (ca * dx + cb * dy),
+                d_quad * (-2.0) * (cb * dx + cc * dy),
+                d_quad * dx * dx,
+                d_quad * 2.0 * dx * dy,
+                d_quad * dy * dy,
+                *(w * gch[c][seg] for c in range(nc)),
+                # d alpha / d opa = e where the gate is open (and opa > 0)
+                torch.where(gate & (r[5 + nc] > 0.0), d_alpha * ent["e"],
+                            torch.zeros_like(d_alpha))])       # [NC+6, M]
+            acc = torch.zeros((nc + 6, n_g * CHUNK), dtype=torch.float32,
+                              device=dev)
+            acc.index_add_(1, ent["tile"] * CHUNK + ent["lane"], terms)
+            # windows are disjoint: each slot is written by one tile only
+            grad[:nc + 6, gpos[window]] = acc.view(nc + 6, n_g,
+                                                   CHUNK)[:, window]
+            sg = sg.index_add(0, seg, u)
+            lt_after = lt_before
+    return grad
+
+
+def composite_bwd(records, tile_starts, tile_counts, tile_ids, logt, exit_k,
+                  gchans, cfg: RenderConfig):
+    """B2 on the device the tensors lie on: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors.
+
+    Args: B1's inputs and residuals (``records``, ``tile_starts``,
+    ``tile_counts``, ``tile_ids``, ``logt [T, P]``, ``exit_k [T]``) and
+    ``gchans [T, NC + 1, P]``, the cotangent of B1's chans.
+
+    Returns ``grad_records [NC + 8, S]`` in the record layout: rows x, y,
+    conic a, b (the cotangent of the record's b, whose quadratic form uses
+    2b), c, the NC channels and opacity; rx = ry = 0, and 0 at every slot
+    outside the tiles' windows or in chunks past ``exit_k``.
+    """
+    if records.is_cuda:
+        return composite_bwd_cuda(records, tile_starts, tile_counts,
+                                  tile_ids, logt, exit_k, gchans, cfg)
+    if records.device.type == "cpu":
+        return composite_bwd_torch(records, tile_starts, tile_counts,
+                                   tile_ids, logt, exit_k, gchans, cfg)
+    raise ValueError(f"no compositor for device {records.device}")
+
+
 class _CompositeTiles(torch.autograd.Function):
-    """Autograd boundary of the compositor; the backward arrives with B2."""
+    """Autograd boundary of the compositor: B1 forward, B2 backward (the
+    gradient reaches ``records`` only; logt and exit_k are residuals)."""
 
     @staticmethod
     def forward(ctx, records, tile_starts, tile_counts, tile_ids, cfg):
         chans, logt, exit_k = composite_fwd(records, tile_starts, tile_counts,
                                             tile_ids, cfg)
         ctx.mark_non_differentiable(logt, exit_k)
+        ctx.save_for_backward(records, tile_starts, tile_counts, tile_ids,
+                              logt, exit_k)
+        ctx.cfg = cfg
         return chans, logt, exit_k
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError("B2 not yet ported")
+    def backward(ctx, gchans, _glogt, _gexit):
+        grad = composite_bwd(*ctx.saved_tensors,
+                             gchans.to(torch.float32).contiguous(), ctx.cfg)
+        return grad, None, None, None, None
 
 
 def composite_tiles(cfg: RenderConfig, records, tile_starts, tile_counts,
                     tile_ids):
     """The tile compositor as the render path calls it: ``(chans, logt,
     exit_k)`` of :func:`composite_fwd`, behind a ``torch.autograd.Function``
-    whose backward raises until the backward kernel B2 is ported."""
+    whose backward is :func:`composite_bwd` (kernel B2 on a CUDA device,
+    its plain version on the CPU)."""
     return _CompositeTiles.apply(records, tile_starts, tile_counts, tile_ids,
                                  cfg)

@@ -7,8 +7,11 @@
                         CUDA device, its plain version on the CPU)
 4. ``assemble_image``   [T, NC + 1, P] tile blocks -> [H, W] images
 
-Forward only: the compositor's backward (B2) is not ported yet, so a
-gradient through :func:`render` raises.
+The path is differentiable with respect to every ``SplatData`` field:
+autograd runs the projection's and assembly's backward, the compositor's
+backward is kernel B2 (its plain version on the CPU), and binning passes
+each pair's cotangent to its splat (straight-through codecs, scatter-add).
+The 2DGS surfel mode is not ported yet.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ def _composite(cfg: RenderConfig, pairs: SortedPairs) -> torch.Tensor:
 
 def composite_sorted(cfg: RenderConfig, pairs: SortedPairs) -> torch.Tensor:
     """The tile compositor over a SortedPairs record set: ``chans [T, NC +
-    1, P]``, rows 0..NC-1 the record channels, row NC the alpha."""
+    1, P]``, rows 0..NC-1 the record channels, row NC the alpha.
+    Differentiable with respect to ``pairs.records`` (B2 backward)."""
     if cfg.return_depth and pairs.num_channels != 4:
         raise ValueError("cfg.return_depth needs pairs binned with it")
     check_backend(cfg, pairs.records.device)
@@ -91,6 +95,8 @@ def render(splats: SplatData, camera: Camera, cfg: RenderConfig,
     Returns a dict with ``color`` [H, W, 3] and ``alpha`` [H, W]; with
     ``cfg.return_depth`` also ``depth`` [H, W]; with ``return_aux`` also
     ``num_pairs`` and ``overflow`` (aux pairs dropped), as 0-d tensors.
+    The images are differentiable with respect to every ``SplatData``
+    field: a backward through them runs B1's backward, kernel B2, once.
     """
     if cfg.render_mode_2d:
         raise NotImplementedError("the 2DGS surfel mode is not ported yet")
@@ -109,7 +115,8 @@ def render(splats: SplatData, camera: Camera, cfg: RenderConfig,
 def render_batch(splats: SplatData, cameras: Camera, cfg: RenderConfig,
                  **kwargs):
     """Render a batch of cameras (leading axis on every Camera field), one
-    view after another; every output gains that leading axis."""
+    view after another; every output gains that leading axis.
+    Differentiable as :func:`render`."""
     outs = [render(splats, Camera(view=cameras.view[b],
                                   proj=cameras.proj[b],
                                   cam_pos=cameras.cam_pos[b]), cfg, **kwargs)

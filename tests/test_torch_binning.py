@@ -6,8 +6,20 @@ and with forward_only=False (slot id breaks depth ties, as in the JAX sort)
 so is every record, bit for bit, inside every tile's window.  With
 forward_only=True the tie order is open in both packages, so the windows
 hold the same records in some order.  Each record codec's
-quantise-dequantise equals the JAX pack/unpack round trip bit for bit."""
+quantise-dequantise equals the JAX pack/unpack round trip bit for bit.
 
+Gradients: every codec passes a cotangent through unchanged (straight
+through, in float32), and the gradient of a weighted sum of the in-window
+records reaches each projected field as the JAX package's custom VJP sends
+it there.  Bars, per field, |d| normalised by the field's max |JAX|:
+f32 p99.9 <= 1e-5 (the same sums; the JAX package's aux segments are
+differences of a running prefix sum); mixed and packed p99.9 <= 1e-2 (the
+JAX package rounds every cotangent but the positions' to bf16, a relative
+2^-9 per pair, which the port keeps in float32)."""
+
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +33,10 @@ from gaussiansplats3d_tpu_torch.render import binning as bin_t
 from gaussiansplats3d_tpu_torch.render import projection as proj_t
 from gaussiansplats3d_tpu_torch.render.projection import ProjectedSplats
 
-from torch_port_common import both_scenes, scene_arrays
+from torch_port_common import both_scenes, error_mass, scene_arrays
+
+DIFF_FIELDS = ("xs", "ys", "conic_a", "conic_b", "conic_c", "col_r", "col_g",
+               "col_b", "opacity", "depth")
 
 
 def _jax_projection(n, seed, eye, scale_mul, **cfg_kw):
@@ -172,6 +187,65 @@ def test_codecs_match_jax_round_trips_bit_for_bit():
         jnp.asarray(opa)))
     same(bin_t.u8_round(torch.from_numpy(col), 127.5), r_j)
     same(bin_t.u8_round(torch.from_numpy(opa), 255.0), a_j)
+
+
+def test_codecs_pass_the_cotangent_through():
+    """A cotangent of 1e-9 (f16 would flush it to 0) and 1.234567e-3 (f16
+    would round it) come back bit for bit through every codec."""
+    g = torch.tensor([1e-9, 1.234567e-3, -2.5, 0.0])
+    for codec in (bin_t.f16_round, bin_t.rad_round_u8,
+                  lambda v: bin_t.px_round(v, 16.0),
+                  lambda v: bin_t.u8_round(v, 127.5),
+                  lambda v: bin_t.u8_round(v, 255.0)):
+        v = torch.tensor([0.3, 1.7, 40.0, 0.9], requires_grad=True)
+        out = codec(v)
+        out.backward(g)
+        np.testing.assert_array_equal(v.grad.numpy().view(np.uint32),
+                                      g.numpy().view(np.uint32))
+        np.testing.assert_array_equal(
+            out.detach().numpy().view(np.uint32),
+            codec(v.detach()).numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("prec,depth", [("f32", False), ("f32", True),
+                                        ("mixed", True), ("packed", False)])
+def test_binning_gradients_match_jax(prec, depth):
+    p_j, cfg_j = _jax_projection(1500, 26, (1.6, 0.9, 1.6), 2.0)
+    kw = dict(record_precision=prec, return_depth=depth)
+    pairs_j, _, rec_j, slots = _bin_both(p_j, cfg_j, **kw)
+    assert int(pairs_j.overflow) == 0 and np.diff(
+        np.asarray(pairs_j.tile_counts)).any()
+    nd = rec_j.shape[0] - 2                       # rx, ry carry none
+    weights = np.random.default_rng(27).normal(
+        size=(nd, slots.size)).astype(np.float32)
+    names = DIFF_FIELDS if depth else DIFF_FIELDS[:-1]
+    cfg_jk = cfg_j.replace(**kw)
+
+    def loss_j(*vals):
+        pairs = bin_j.bin_sort_records(
+            dataclasses.replace(p_j, **dict(zip(names, vals))), cfg_jk)
+        rec = jnp.stack([pairs.xs, pairs.ys, pairs.cas, pairs.cbs, pairs.ccs,
+                         pairs.crs, pairs.cgs, pairs.cbs2]
+                        + ([pairs.depths] if depth else []) + [pairs.opas])
+        return jnp.sum(rec[:, slots] * weights)
+
+    g_j = jax.jit(jax.grad(loss_j, argnums=tuple(range(len(names)))))(
+        *(getattr(p_j, f) for f in names))
+    proj = _port_projection(p_j)
+    for f in names:
+        getattr(proj, f).requires_grad_(True)
+    cfg_t = gt.RenderConfig(width=cfg_j.width, height=cfg_j.height,
+                            sh_degree=cfg_j.sh_degree, **kw)
+    rec = bin_t.bin_sort_records(proj, cfg_t).records
+    (rec[:nd, slots] * torch.from_numpy(weights)).sum().backward()
+    bar = 1e-5 if prec == "f32" else 1e-2
+    for f, gj in zip(names, g_j):
+        gj = np.asarray(gj)
+        scale = np.abs(gj).max()
+        assert scale > 0.0, f
+        p999, _ = error_mass(getattr(proj, f).grad.numpy() / scale,
+                             gj / scale)
+        assert p999 <= bar, (f, p999)
 
 
 def test_sharded_arguments_raise():

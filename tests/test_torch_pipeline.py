@@ -1,10 +1,16 @@
-"""The port's forward render, end to end (render/pipeline.py), against the
-JAX package's gs.render(backend="jax") and gs.reference_render, on the same
-numpy-made scene and camera.
+"""The port's render, end to end (render/pipeline.py), against the JAX
+package's gs.render(backend="jax") and gs.reference_render, on the same
+numpy-made scene and camera: the images, and the gradients of an image
+loss with respect to all five SplatData fields.
 
 Bars, by error mass (the hard thresholds flip on last-ulp differences, so
-never the elementwise max): p99.9 of |d| <= 1e-3 and <= 0.1% of pixels
-over 1e-2, for color, alpha and (where asked) depth."""
+never the elementwise max): images p99.9 of |d| <= 1e-3 and <= 0.1% of
+pixels over 1e-2, for color, alpha and (where asked) depth.  Gradients,
+per field, |d| normalised by the field's max |JAX|: p99.9 <= 1e-2
+(test_pallas.py:124's bar; the port's B2 replays an early exit that
+backend="jax" does not have), under every record precision: the JAX
+package's bf16 rounding of the non-position cotangents under mixed and
+packed (a relative 2^-9 per pair) stays well inside it."""
 
 import jax
 import numpy as np
@@ -17,13 +23,19 @@ from gaussiansplats3d_tpu_torch.render import cuda_rasterize as cr
 from gaussiansplats3d_tpu_torch.render import pipeline as pipe_t
 
 from torch_port_common import (both_cameras, both_scenes, cuda_device,  # noqa: F401
-                               error_mass, scene_arrays)
+                               error_mass, interpret_pallas, scene_arrays)
 
 W = H = 96
 KEYS = ("color", "alpha")
+FIELDS = ("means", "scales", "quats", "colors", "sh")
 # one compilation per configuration instead of op-by-op dispatch
 render_j = jax.jit(gs.render, static_argnums=(2,),
                    static_argnames=("return_aux",))
+
+
+def _image_loss(out, depth):
+    loss = (out["color"] ** 2).mean()
+    return loss + (out["depth"] ** 2).mean() if depth else loss
 
 
 def _scene(seed=41, n=800, sh_degree=1):
@@ -84,16 +96,81 @@ def test_render_batch_assembly_and_errors():
     # a camera facing away sees only the background
     assert torch.equal(outs["color"][1], torch.ones(H, W, 3))
     assert float(outs["alpha"][1].abs().max()) == 0.0
-    before = cr.launches
+    before = (cr.launches, cr.bwd_launches)
     with pytest.raises(NotImplementedError):
         gt.render(s_t, cam_t, cfg.replace(render_mode_2d=True))
     with pytest.raises(ValueError):
         gt.render(s_t, cam_t, cfg.replace(backend="cuda"))
     s_t.means.requires_grad_(True)
     img = gt.render(s_t, cam_t, cfg)["color"]
-    with pytest.raises(NotImplementedError, match="B2 not yet ported"):
-        img.sum().backward()
-    assert cr.launches == before           # the CPU path never launches
+    img.sum().backward()                   # the plain B2 on the CPU
+    assert bool(torch.isfinite(s_t.means.grad).all())
+    assert float(s_t.means.grad.abs().max()) > 0.0
+    # the CPU path never launches a kernel
+    assert (cr.launches, cr.bwd_launches) == before
+
+
+@pytest.mark.parametrize("backend,prec,depth", [
+    ("jax", "f32", False), ("jax", "f32", True), ("jax", "mixed", False),
+    ("jax", "packed", False), ("pallas", "f32", False)])
+def test_render_gradients_match_jax(request, backend, prec, depth):
+    """d/d(every SplatData field) of mean(color^2) (+ mean(depth^2)),
+    against jax.grad of the JAX render; "pallas" runs the Pallas kernels in
+    interpret mode, at a smaller size."""
+    n, size = (300, 64) if backend == "pallas" else (800, W)
+    if backend == "pallas":
+        request.getfixturevalue("interpret_pallas")
+    s_j, _ = both_scenes(scene_arrays(n, sh_degree=1, seed=45))
+    cam_j, cam_t = both_cameras(gs.Camera.look_at(
+        (2.5, 1.5, 2.5), (0, 0, 0), fov_y_deg=60, aspect=1.0))
+    kw = dict(width=size, height=size, sh_degree=1, record_precision=prec,
+              return_depth=depth)
+    cfg_j = gs.RenderConfig(backend=backend, **kw)
+    g_j = jax.jit(jax.grad(lambda s: _image_loss(gs.render(s, cam_j, cfg_j),
+                                                 depth)))(s_j)
+    s_t = gt.SplatData.from_numpy(*scene_arrays(n, sh_degree=1, seed=45),
+                                  device="cpu")
+    for f in FIELDS:
+        getattr(s_t, f).requires_grad_(True)
+    _image_loss(gt.render(s_t, cam_t, gt.RenderConfig(**kw)),
+                depth).backward()
+    for f in FIELDS:
+        ref = np.asarray(getattr(g_j, f))
+        scale = np.abs(ref).max()
+        assert scale > 0.0, f
+        got = getattr(s_t, f).grad.numpy()
+        assert np.isfinite(got).all(), f
+        p999, _ = error_mass(got / scale, ref / scale)
+        assert p999 <= 1e-2, (f, p999)
+
+
+@pytest.mark.cuda
+def test_cuda_render_gradients_match_cpu(cuda_device):
+    """A backward through render() on the card launches B1 and B2 once
+    each and gives the CPU render's gradients."""
+    arrays = scene_arrays(3000, sh_degree=1, seed=46)
+    cam_j = gs.Camera.look_at((2.5, 1.5, 2.5), (0, 0, 0), fov_y_deg=60,
+                              aspect=4 / 3)
+    cfg = gt.RenderConfig(width=256, height=192, sh_degree=1,
+                          record_precision="f32", return_depth=True)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        s = gt.SplatData.from_numpy(*arrays, device=dev)
+        for f in FIELDS:
+            getattr(s, f).requires_grad_(True)
+        cam = gt.Camera.from_numpy(np.asarray(cam_j.view),
+                                   np.asarray(cam_j.proj),
+                                   np.asarray(cam_j.cam_pos), device=dev)
+        before = (cr.launches, cr.bwd_launches)
+        _image_loss(gt.render(s, cam, cfg), True).backward()
+        after = (cr.launches, cr.bwd_launches)
+        expect = 1 if dev != "cpu" else 0
+        assert after == (before[0] + expect, before[1] + expect)
+        grads.append({f: getattr(s, f).grad.cpu().numpy() for f in FIELDS})
+    for f in FIELDS:
+        scale = np.abs(grads[0][f]).max()
+        p999, over = error_mass(grads[1][f] / scale, grads[0][f] / scale)
+        assert p999 <= 1e-3 and over <= 1e-3, (f, p999, over)
 
 
 @pytest.mark.cuda

@@ -1,14 +1,17 @@
 """Shared pieces of the port's tests (tests/test_torch_*.py): scenes made
-with numpy from a seed and fed to both packages, error-mass measures, and
-the fixture that decides at test time whether a CUDA card is present."""
+with numpy from a seed and fed to both packages, error-mass measures, the
+fixture that decides at test time whether a CUDA card is present, and the
+one that runs the JAX package's Pallas kernels in interpret mode."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 import gaussiansplats3d_tpu as gs
 import gaussiansplats3d_tpu_torch as gt
+from gaussiansplats3d_tpu.render import pallas_rasterize as pr
 
 # Six xdist workers share the machine.
 torch.set_num_threads(2)
@@ -57,3 +60,15 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def interpret_pallas(monkeypatch):
+    """Run pallas_call in interpret mode, as tests/test_pallas.py does."""
+    orig = pl.pallas_call
+
+    def patched(*args, **kwargs):
+        kwargs["interpret"] = True
+        return orig(*args, **kwargs)
+
+    monkeypatch.setattr(pr.pl, "pallas_call", patched)
