@@ -37,7 +37,20 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    Adam steps at 2e-3, >= 25 dB); a short train_scene run with a densify;
 7. correctness at a small size: the CUDA render against the port's
    untiled oracle on the card and against the CPU render (plain
-   versions), images and the gradients of the five fields.
+   versions), images and the gradients of the five fields;
+8. the 2DGS surfel mode (render_mode_2d) at the same scene and size,
+   'mixed': B3 and B4 against their plain versions on the run's own surfel
+   records, and again with the depth channel (NC = 4) at N_DEPTH_2D
+   splats, each with its time, its plain version's time and its bound
+   from the visits that pass each cut; 2D serving (render() under no_grad,
+   RENDERS times: B3 once a render, B1, B2 and B4 never) with a stage
+   breakdown and a profiler view; 2D training (bench.py's step in 2D,
+   STEPS steps: B3 and B4 once a step, B1 and B2 never; every gradient
+   finite and nonzero but scales[:, 2], which surfels never read and which
+   must be exactly 0) with a profiler view; a few Adam steps of
+   make_train_step in 2D at 2M and a small 2D fit whose loss must fall;
+   the 2D render at a small size against the port's render_2d oracle on
+   the card and against the CPU, images and gradients.
 
 Prints a {"kernels": [...]} line, and last {"ok": true, "device": ...}.
 It has no CPU mode: without a CUDA device it exits 1.
@@ -68,12 +81,14 @@ STEPS = 5
 # HBM3 bandwidth, at the full 700 W power limit.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-# float32 operations B1's function needs per pair-pixel visit, by how far
-# the visit gets through the cut-offs (an FMA counts two):
-# every visit: dx, dy, |dx| <= rx, |dy| <= ry;
-OPS_VISIT = 4
-# inside the rx/ry box: g = a dx^2 + 2b dx dy + c dy^2 (7 mul, 2 add), g <= 8;
-OPS_IN_BOX = 10
+# float32 operations B1's function needs (an FMA counts two).  Per pair
+# visited in a tile, not per pixel: clip the pair's rx/ry box to the tile
+# (cx -+ rx, cy -+ ry and their max/min with the tile's edges); the pixels
+# outside the clipped box need nothing more.
+OPS_PAIR_TILE = 8
+# Per pair-pixel visit, by how far it gets through the cut-offs: inside the
+# box, dx, dy and g = a dx^2 + 2b dx dy + c dy^2 (7 mul, 2 add), g <= 8;
+OPS_IN_BOX = 12
 # inside the g cut-off: -0.5 g, exp, * opacity, alpha >= min_alpha;
 OPS_IN_CUTOFF = 4
 # contributing: the 0.999 clamp, w = alpha T, T -= w, then one FMA for each
@@ -99,11 +114,35 @@ WORK_PAIRS_PER_STEP = 1 << 15
 # Kernel-vs-plain bars, by error mass: p99.9 of |d| and the share of
 # elements over 1e-2; exit_k equal on this share of tiles.  B2: per record
 # row, |d| normalised by the row's max |plain|.
-BAR_P999 = {"chans": 1e-3, "logt": 1e-2, "grad": 1e-3}
+BAR_P999 = {"chans": 1e-3, "logt": 1e-3, "grad": 1e-3}
 BAR_OVER = 1e-3
 BAR_EXIT_AGREE = 0.99
 # The fit gate of tests/test_training.py::test_fit_psnr_gate
 FIT_PSNR_DB = 25.0
+# Splats of the 2D check with the depth channel (B3/B4's NC = 4 variant)
+N_DEPTH_2D = 500_000
+# float32 operations B3's function needs (an FMA counts two): per pair
+# visited in a tile, the clip of its box (OPS_PAIR_TILE); per pair-pixel
+# visit, by how far it gets through the surfel fragment's cuts: inside the
+# box, dx, dy (2), k and l (12), p = k x l (9), |p.z| test (1), s = p.xy /
+# p.z (2), rho3d (3), rho2d (4), the comparison (1), depth (4), its test (1);
+SURF_OPS_IN_BOX = 39
+# past the |p.z| and depth cuts: -0.5 rho, exp, * opacity, the 0.99 clamp,
+# the min_alpha test;
+SURF_OPS_PAST_CUTS = 5
+# contributing: w = alpha exp(chunk_log) T (3), chunk_log += log1p (2), then
+# one FMA for each of the NC channels (2 each).
+SURF_OPS_BLEND_BASE = 5
+# B4 walks B3's tiers twice (the chunk sum's recompute and the sweep).  Per
+# contributing visit: the recompute's log1p and add (2); the sweep's log1p
+# and running sum (2), T = exp(chunk_log - rest + logt) (3), w (1), d_alpha
+# with its gate, 1 - alpha and two divisions (8), S += w cg (2), d_rho (3),
+# d_su/d_sv or d_dx/d_dy (4), 1 / p.z (1), d_p (6), d_k and d_l (18), the 9
+# T terms (18), the center (2), the opacity (2) = 72, and the 12 adds that
+# sum the T, center and opacity terms over the tile's pixels; per channel
+# the FMA of cg (2), w gcol (2) and its add (1).
+OPS_B4_GRAD_BASE = 72 + 12
+OPS_B4_GRAD_PER_CHANNEL = 5
 
 
 def log(*a):
@@ -176,26 +215,35 @@ def make_scene(gt, device):
     return splats, cam, cfg
 
 
-def visit_counts(cr, pairs, exit_k, cfg):
-    """The pair-pixel visits of each tile before its exit (the window's
-    pairs in chunks < exit_k, at every pixel of the tile), how many of them
-    pass the rx/ry box, the g <= 8 cut-off and min_alpha (the plain
-    version's masks), and the pairs visited."""
-    dev = pairs.records.device
-    ts = cfg.tile_size
-    start = pairs.tile_starts.long()
-    end = torch.minimum(start + pairs.tile_counts.long(),
-                        (start // cr.CHUNK + exit_k.long()) * cr.CHUNK)
+def visited_slots(chunk, starts, counts, exit_k, cfg):
+    """The (tile, slot) of every window pair in chunks < exit_k (each is
+    visited at every pixel of its tile), and how many there are."""
+    dev = starts.device
+    start = starts.long()
+    end = torch.minimum(start + counts.long(),
+                        (start // chunk + exit_k.long()) * chunk)
     n_done = torch.clamp(end - start, min=0)
     total = int(n_done.sum())
     tiles = torch.arange(cfg.num_tiles, device=dev)
     tile = torch.repeat_interleave(tiles, n_done, output_size=total)
     first = torch.cumsum(n_done, 0) - n_done
     slot = start[tile] + torch.arange(total, device=dev) - first[tile]
+    return tile, slot, total
+
+
+def visit_counts(cr, pairs, exit_k, cfg):
+    """The pairs each tile visits before its exit (the window's pairs in
+    chunks < exit_k), their pair-pixel visits (at every pixel of the tile),
+    how many of those pass the rx/ry box, the g <= 8 cut-off and min_alpha
+    (the plain version's masks); and the pairs visited."""
+    dev = pairs.records.device
+    ts = cfg.tile_size
+    tile, slot, total = visited_slots(cr.CHUNK, pairs.tile_starts,
+                                      pairs.tile_counts, exit_k, cfg)
     pix = torch.arange(ts, device=dev, dtype=torch.float32) + 0.5
     nc = pairs.records.shape[0] - 8
-    counts = {"visits": total * ts * ts, "in_box": 0, "in_cutoff": 0,
-              "contributing": 0}
+    counts = {"pairs": total, "visits": total * ts * ts, "in_box": 0,
+              "in_cutoff": 0, "contributing": 0}
     for i in range(0, total, WORK_PAIRS_PER_STEP):
         rec = pairs.records[:, slot[i:i + WORK_PAIRS_PER_STEP]]
         t_i = tile[i:i + WORK_PAIRS_PER_STEP]
@@ -219,9 +267,10 @@ def visit_counts(cr, pairs, exit_k, cfg):
 
 
 def tier_ops(counts):
-    """float32 operations of the tiers every visit walks up to the cut-offs
-    (B1's evaluation of alpha)."""
-    return (counts["visits"] * OPS_VISIT + counts["in_box"] * OPS_IN_BOX
+    """float32 operations of B1's evaluation of alpha: the box's clip per
+    pair visited, then the tiers each in-box visit walks up to the
+    cut-offs."""
+    return (counts["pairs"] * OPS_PAIR_TILE + counts["in_box"] * OPS_IN_BOX
             + counts["in_cutoff"] * OPS_IN_CUTOFF)
 
 
@@ -267,6 +316,59 @@ def bound_of(ops, nbytes):
             "operations" if ops_ms >= bytes_ms else "bytes", ops_ms, bytes_ms)
 
 
+def compare_forward(kernel, name, outputs, ref, exit_k, num_tiles):
+    """A compositor forward against its plain version: the channels and
+    log T by error mass, exit_k per tile.  ``outputs``: [(field, kernel's,
+    plain's, p99.9 bar)]; raises past a bar.  Returns the errors."""
+    err = {}
+    for field, a, b, bar in outputs:
+        mx, p999, over = error_mass(a, b)
+        err[field] = {"max_abs": mx, "p999": p999, "over_1e-2": over}
+        log(f"{kernel} vs plain, {name}, {field}: max_abs {mx:.3e}  p99.9 "
+            f"{p999:.3e}  share over 1e-2 {over:.3e}")
+        if not (p999 <= bar and over <= BAR_OVER):
+            raise AssertionError(f"{kernel} disagrees with its plain version"
+                                 f" on {name} {field}: {err[field]}")
+    agree = float((exit_k == ref).double().mean())
+    err["exit_k_agree"] = agree
+    log(f"{kernel} vs plain, {name}, exit_k: equal on {agree:.6f} of "
+        f"{num_tiles} tiles")
+    if agree < BAR_EXIT_AGREE:
+        raise AssertionError(f"{kernel} exit_k agrees on only {agree} "
+                             f"({name})")
+    return err
+
+
+def compare_grad_rows(kernel, name, grad, ref):
+    """A compositor backward against its plain version, per record row,
+    |d| normalised by the row's max |plain|; the last two rows (rx, ry)
+    and rows whose plain gradient is 0 must be exactly 0.  Raises past a
+    bar; returns the rows compared."""
+    if not bool(torch.isfinite(grad).all()):
+        raise AssertionError(f"{kernel} gave non-finite gradients on {name}")
+    nf = grad.shape[0]
+    rows = []
+    for r in range(nf):
+        scale = float(ref[r].abs().max())
+        if r >= nf - 2 or scale == 0.0:      # rx, ry: no gradient
+            if float(grad[r].abs().max()) != 0.0:
+                raise AssertionError(f"{kernel} row {r} should be 0 "
+                                     f"({name})")
+            continue
+        mx, p999, over = error_mass(grad[r] / scale, ref[r] / scale)
+        rows.append({"row": r, "max_abs": float((grad[r] - ref[r]).abs()
+                                                 .max()),
+                     "max_norm": mx, "p999_norm": p999, "over_1e-2": over,
+                     "row_scale": scale})
+        log(f"{kernel} vs plain, {name}, row {r}: normalised max {mx:.3e}  "
+            f"p99.9 {p999:.3e}  share over 1e-2 {over:.3e}  (row max "
+            f"|plain| {scale:.3e})")
+        if not (p999 <= BAR_P999["grad"] and over <= BAR_OVER):
+            raise AssertionError(f"{kernel} disagrees with its plain version"
+                                 f" on {name} row {r}: {rows[-1]}")
+    return rows
+
+
 def check_b1(cr, splats, cam, name, cfg):
     """B1 against its plain version on the records of one main-path
     configuration; its time, the plain version's time and the bound."""
@@ -281,21 +383,10 @@ def check_b1(cr, splats, cam, name, cfg):
     torch.cuda.synchronize()
     ref = cr.composite_fwd_torch(*args)
     torch.cuda.synchronize()
-    err = {}
-    for field, a, b in (("chans", chans, ref[0]), ("logt", logt, ref[1])):
-        mx, p999, over = error_mass(a, b)
-        err[field] = {"max_abs": mx, "p999": p999, "over_1e-2": over}
-        log(f"B1 vs plain, {name}, {field}: max_abs {mx:.3e}  p99.9 "
-            f"{p999:.3e}  share over 1e-2 {over:.3e}")
-        if not (p999 <= BAR_P999[field] and over <= BAR_OVER):
-            raise AssertionError(f"B1 disagrees with its plain version on "
-                                 f"{name} {field}: {err[field]}")
-    agree = float((exit_k == ref[2]).double().mean())
-    err["exit_k_agree"] = agree
-    log(f"B1 vs plain, {name}, exit_k: equal on {agree:.6f} of "
-        f"{cfg.num_tiles} tiles")
-    if agree < BAR_EXIT_AGREE:
-        raise AssertionError(f"exit_k agrees on only {agree} ({name})")
+    err = compare_forward(
+        "B1", name, [("chans", chans, ref[0], BAR_P999["chans"]),
+                     ("logt", logt, ref[1], BAR_P999["logt"])],
+        ref[2], exit_k, cfg.num_tiles)
 
     ms = cuda_ms(lambda: cr.composite_fwd_cuda(*args), reps=10)
     plain_ms = cuda_ms(lambda: cr.composite_fwd_torch(*args), reps=2)
@@ -304,7 +395,8 @@ def check_b1(cr, splats, cam, name, cfg):
     log(f"B1 {name}: time {ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
         f"{bound_ms:.4f} ms by {bound_by} (ops bound {ops_ms:.4f} ms: "
         f"{ops} float32 operations; bytes bound {bytes_ms:.4f} ms: {nbytes}"
-        f" bytes); pair-pixel visits before exit {counts['visits']}, in "
+        f" bytes); pairs visited {counts['pairs']}, pair-pixel visits "
+        f"before exit {counts['visits']}, in "
         f"box {counts['in_box']}, in cut-off {counts['in_cutoff']}, "
         f"contributing {counts['contributing']}; mean exit_k "
         f"{float(exit_k.double().mean()):.2f}, pairs in windows "
@@ -360,27 +452,8 @@ def check_b2(cr, splats, cam, name, cfg):
     torch.cuda.synchronize()
     ref = cr.composite_bwd_torch(*args)
     torch.cuda.synchronize()
-    if not bool(torch.isfinite(grad).all()):
-        raise AssertionError(f"B2 gave non-finite gradients on {name}")
     nf = grad.shape[0]
-    rows = []
-    for r in range(nf):
-        scale = float(ref[r].abs().max())
-        if r >= nf - 2 or scale == 0.0:      # rx, ry: no gradient
-            if float(grad[r].abs().max()) != 0.0:
-                raise AssertionError(f"B2 row {r} should be 0 ({name})")
-            continue
-        mx, p999, over = error_mass(grad[r] / scale, ref[r] / scale)
-        rows.append({"row": r, "max_abs": float((grad[r] - ref[r]).abs()
-                                                 .max()),
-                     "max_norm": mx, "p999_norm": p999, "over_1e-2": over,
-                     "row_scale": scale})
-        log(f"B2 vs plain, {name}, row {r}: normalised max {mx:.3e}  p99.9 "
-            f"{p999:.3e}  share over 1e-2 {over:.3e}  (row max |plain| "
-            f"{scale:.3e})")
-        if not (p999 <= BAR_P999["grad"] and over <= BAR_OVER):
-            raise AssertionError(f"B2 disagrees with its plain version on "
-                                 f"{name} row {r}: {rows[-1]}")
+    rows = compare_grad_rows("B2", name, grad, ref)
     if len(rows) != nf - 2:
         raise AssertionError(f"B2 on {name}: a record row has no gradient")
     ms = cuda_ms(lambda: cr.composite_bwd_cuda(*args), reps=10)
@@ -390,7 +463,8 @@ def check_b2(cr, splats, cam, name, cfg):
     log(f"B2 {name}: time {ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
         f"{bound_ms:.4f} ms by {bound_by} (ops bound {ops_ms:.4f} ms: "
         f"{ops} float32 operations; bytes bound {bytes_ms:.4f} ms: {nbytes}"
-        f" bytes); visits replayed {counts['visits']}, in box "
+        f" bytes); pairs replayed {counts['pairs']}, visits replayed "
+        f"{counts['visits']}, in box "
         f"{counts['in_box']}, in cut-off {counts['in_cutoff']}, "
         f"contributing {counts['contributing']}; chunks replayed "
         f"{int(exit_k.long().sum())}")
@@ -740,8 +814,9 @@ def profile_step(gt, splats, cam, cfg, wall_ms):
 
 def adam_steps(cr, splats, cam, cfg, steps=3):
     """A few Adam steps through make_train_step at the main path's size,
-    towards a black image: finite losses that fall, B1 and B2 once a
-    step."""
+    towards a black image: finite losses that fall, the compositor's
+    forward and backward kernels once a step (``cr``: the module of B1 and
+    B2, or of B3 and B4 for a 2D cfg)."""
     from gaussiansplats3d_tpu_torch.parallel import train
     state = train.TrainState.create(splats, train.adam(1e-3))
     step = train.make_train_step(cfg, None, train.adam(1e-3))
@@ -758,8 +833,9 @@ def adam_steps(cr, splats, cam, cfg, steps=3):
             raise AssertionError(f"make_train_step: loss {losses[-1]}, "
                                  f"grad_norm {float(m['grad_norm'])}")
     launches = (cr.launches, cr.bwd_launches)
-    log(f"make_train_step at 2M: losses {losses}, step ms "
-        f"{[round(t, 2) for t in times]}, (B1, B2) launches {launches}")
+    log(f"make_train_step at 2M{' in 2D' if cfg.render_mode_2d else ''}: "
+        f"losses {losses}, step ms {[round(t, 2) for t in times]}, "
+        f"(forward, backward kernel) launches {launches}")
     if launches != (steps, steps) or not losses[-1] < losses[0]:
         raise AssertionError("make_train_step did not train")
     return {"losses": losses, "times_ms": times}
@@ -895,6 +971,447 @@ def small_correctness(gt, device):
                 raise AssertionError(f"small render {k} vs {ref_name}")
 
 
+# --- the 2DGS surfel mode ----------------------------------------------------
+
+def subset(gt, splats, n):
+    """The first n splats of a scene."""
+    return gt.SplatData(*(getattr(splats, f)[:n] for f in FIELDS))
+
+
+def surfel_inputs(splats, cam, cfg):
+    """The surfel compositor's inputs on the port's own projection and
+    binning: ((records, starts, counts, tile ids), overflow)."""
+    from gaussiansplats3d_tpu_torch.render.surfel import (bin_sort_surfels,
+                                                          project_surfels)
+    with torch.no_grad():
+        recs, starts, counts, _, overflow = bin_sort_surfels(
+            project_surfels(splats, cam, cfg), cfg)
+    ids = torch.arange(cfg.num_tiles, dtype=torch.int32,
+                       device=splats.device)
+    return (recs, starts, counts, ids), int(overflow)
+
+
+def surfel_visit_counts(cs, args, exit_k, cfg):
+    """The pairs each tile visits before its exit, their pair-pixel visits,
+    how many of those pass the rx/ry box, the |p.z| and depth cuts, and
+    min_alpha (the plain version's arithmetic); and the pairs visited."""
+    recs, starts, counts, _ = args
+    dev = recs.device
+    ts = cfg.tile_size
+    tile, slot, total = visited_slots(cs.CHUNK, starts, counts, exit_k, cfg)
+    pix = torch.arange(ts, device=dev, dtype=torch.float32) + 0.5
+    nc = recs.shape[0] - 14
+    out = {"pairs": total, "visits": total * ts * ts, "in_box": 0,
+           "past_cuts": 0, "contributing": 0}
+    step = WORK_PAIRS_PER_STEP // 4
+    for i in range(0, total, step):
+        r = recs[:, slot[i:i + step]]
+        t_i = tile[i:i + step]
+        x0 = ((t_i % cfg.tiles_x) * ts).float()
+        y0 = torch.div(t_i, cfg.tiles_x, rounding_mode="floor").float() * ts
+        px = (x0[:, None] + pix[None, :])[:, None, :]              # [B, 1, x]
+        py = (y0[:, None] + pix[None, :])[:, :, None]              # [B, y, 1]
+        f = [v[:, None, None] for v in r]
+        in_box = (((px - f[9]).abs() <= f[12 + nc])
+                  & ((py - f[10]).abs() <= f[13 + nc]))
+        k = [px * f[2 + 3 * j] - f[3 * j] for j in range(3)]
+        l_ = [py * f[2 + 3 * j] - f[1 + 3 * j] for j in range(3)]
+        p0 = k[1] * l_[2] - k[2] * l_[1]
+        p1 = k[2] * l_[0] - k[0] * l_[2]
+        p2 = k[0] * l_[1] - k[1] * l_[0]
+        tiny = p2.abs() < 1e-12
+        sp2 = torch.where(tiny, torch.full_like(p2, 1e-12), p2)
+        su, sv = p0 / sp2, p1 / sp2
+        rho3d = su * su + sv * sv
+        rho2d = 2.0 * ((px - f[9]) ** 2 + (py - f[10]) ** 2)
+        depth = torch.where(rho3d <= rho2d, su * f[2] + sv * f[5] + f[8],
+                            f[8].expand_as(su))
+        past = in_box & ~tiny & ~(depth < cs.NEAR_N)
+        alpha = cs.surfel_alpha(f[:9], f[9], f[10], f[11 + nc], f[12 + nc],
+                                f[13 + nc], px, py, cfg.min_alpha)
+        out["in_box"] += int(in_box.sum())
+        out["past_cuts"] += int(past.sum())
+        out["contributing"] += int((alpha > 0.0).sum())
+    return out, total
+
+
+def surfel_tier_ops(counts):
+    """float32 operations of B3's evaluation of alpha: the box's clip per
+    pair visited, then the tiers each in-box visit walks up to the cuts."""
+    return (counts["pairs"] * OPS_PAIR_TILE
+            + counts["in_box"] * SURF_OPS_IN_BOX
+            + counts["past_cuts"] * SURF_OPS_PAST_CUTS)
+
+
+def b3_work(cs, args, exit_k, cfg):
+    """What B3's function needs on these records, as float32 operations
+    and bytes."""
+    counts, total = surfel_visit_counts(cs, args, exit_k, cfg)
+    nc = args[0].shape[0] - 14
+    ops = (surfel_tier_ops(counts)
+           + counts["contributing"] * (SURF_OPS_BLEND_BASE + 2 * nc))
+    p, t = cfg.tile_size ** 2, cfg.num_tiles
+    # records of the pairs composited, read once; starts, counts and ids;
+    # colors, logt and exit_k written once
+    nbytes = (total * (nc + 14) * 4 + 3 * t * 4 + t * p * nc * 4 + t * p * 4
+              + t * 4)
+    return counts, ops, nbytes
+
+
+def b4_work(cs, args, exit_k, cfg):
+    """What B4's function needs on these records: B3's visits walked twice
+    (the chunk sum's recompute and the sweep), and the gradient terms of
+    the contributing visits summed over the pixels."""
+    counts, total = surfel_visit_counts(cs, args, exit_k, cfg)
+    nc = args[0].shape[0] - 14
+    p, t = cfg.tile_size ** 2, cfg.num_tiles
+    ops = (2 * surfel_tier_ops(counts)
+           + counts["contributing"] * (OPS_B4_GRAD_BASE
+                                       + OPS_B4_GRAD_PER_CHANNEL * nc)
+           + int(exit_k.long().sum()) * p * OPS_B2_CHUNK)
+    # records of the pairs replayed, gcol, glogt and logt read once; starts,
+    # counts, ids and exit_k; the [NC + 14, S] gradient written once
+    nbytes = (total * (nc + 14) * 4 + t * p * nc * 4 + 2 * t * p * 4
+              + 4 * t * 4 + args[0].numel() * 4)
+    return counts, ops, nbytes
+
+
+def surfel_cotangents(colors, logt, cfg):
+    """The cotangents (gcol, glogt) of mean(color^2) + mean(alpha^2) (+
+    mean(depth^2) with a depth channel) at the surfel compositor's
+    outputs, through the port's own assembly: the alpha term reaches logt,
+    as a background does, so B4's glogt term is exercised."""
+    from gaussiansplats3d_tpu_torch.render import pipeline, surfel
+    c = colors.detach().requires_grad_(True)
+    lt = logt.detach().requires_grad_(True)
+    out = pipeline.assemble_image(surfel.chans_from_colors_logt(c, lt), cfg)
+    loss = sum((v ** 2).mean() for k, v in out.items()
+               if k in ("color", "alpha", "depth"))
+    gc, gl = torch.autograd.grad(loss, (c, lt))
+    return gc.contiguous(), gl.contiguous()
+
+
+def check_b3(cs, splats, cam, name, cfg):
+    """B3 against its plain version on the surfel records of one 2D
+    configuration; its time, the plain version's time and the bound."""
+    args, overflow = surfel_inputs(splats, cam, cfg)
+    colors, logt, exit_k = cs.composite_surfel_fwd_cuda(*args, cfg)
+    torch.cuda.synchronize()
+    ref = cs.composite_surfel_fwd_torch(*args, cfg)
+    torch.cuda.synchronize()
+    err = compare_forward(
+        "B3", name, [("colors", colors, ref[0], BAR_P999["chans"]),
+                     ("logt", logt, ref[1], BAR_P999["logt"])],
+        ref[2], exit_k, cfg.num_tiles)
+    ms = cuda_ms(lambda: cs.composite_surfel_fwd_cuda(*args, cfg), reps=10)
+    plain_ms = cuda_ms(lambda: cs.composite_surfel_fwd_torch(*args, cfg),
+                       reps=2)
+    counts, ops, nbytes = b3_work(cs, args, exit_k, cfg)
+    bound_ms, bound_by, ops_ms, bytes_ms = bound_of(ops, nbytes)
+    log(f"B3 {name}: time {ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
+        f"{bound_ms:.4f} ms by {bound_by} (ops bound {ops_ms:.4f} ms: "
+        f"{ops} float32 operations; bytes bound {bytes_ms:.4f} ms: {nbytes}"
+        f" bytes); pairs visited {counts['pairs']}, pair-pixel visits "
+        f"before exit {counts['visits']}, in "
+        f"box {counts['in_box']}, past the cuts {counts['past_cuts']}, "
+        f"contributing {counts['contributing']}; mean exit_k "
+        f"{float(exit_k.double().mean()):.2f}, pairs in windows "
+        f"{int(args[2].long().sum())}, overflow {overflow}")
+    return {"max_abs_err": max(err["colors"]["max_abs"],
+                               err["logt"]["max_abs"]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "errors": err, "work": counts,
+            "operations": ops, "bytes": nbytes, "overflow": overflow}
+
+
+def check_b4(cs, splats, cam, name, cfg):
+    """B4 against its plain version on the surfel records of one 2D
+    configuration, with B3's residuals and the cotangents of
+    surfel_cotangents (glogt nonzero); its time, the plain version's time
+    and the bound."""
+    args, _ = surfel_inputs(splats, cam, cfg)
+    with torch.no_grad():
+        colors, logt, exit_k = cs.composite_surfel_fwd_cuda(*args, cfg)
+    gcol, glogt = surfel_cotangents(colors, logt, cfg)
+    if float(glogt.abs().max()) == 0.0:
+        raise AssertionError("glogt is 0: B4's glogt term is not exercised")
+    bargs = args + (logt, exit_k, gcol, glogt, cfg)
+    grad = cs.composite_surfel_bwd_cuda(*bargs)
+    torch.cuda.synchronize()
+    ref = cs.composite_surfel_bwd_torch(*bargs)
+    torch.cuda.synchronize()
+    nf = grad.shape[0]
+    rows = compare_grad_rows("B4", name, grad, ref)
+    # T reaches alpha only where rho3d <= rho2d: a scene of sub-pixel
+    # surfels may give its rows none (small_2d covers them on the card);
+    # the center, channels and opacity always have a gradient
+    with_grad = {r["row"] for r in rows}
+    if not set(range(9, nf - 2)) <= with_grad:
+        raise AssertionError(f"B4 on {name}: a center, channel or opacity "
+                             f"row has no gradient")
+    log(f"B4 {name}: {len(with_grad & set(range(9)))} of the 9 T rows have "
+        f"a gradient")
+    ms = cuda_ms(lambda: cs.composite_surfel_bwd_cuda(*bargs), reps=10)
+    plain_ms = cuda_ms(lambda: cs.composite_surfel_bwd_torch(*bargs), reps=2)
+    counts, ops, nbytes = b4_work(cs, args, exit_k, cfg)
+    bound_ms, bound_by, ops_ms, bytes_ms = bound_of(ops, nbytes)
+    log(f"B4 {name}: time {ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
+        f"{bound_ms:.4f} ms by {bound_by} (ops bound {ops_ms:.4f} ms: "
+        f"{ops} float32 operations; bytes bound {bytes_ms:.4f} ms: {nbytes}"
+        f" bytes); pairs replayed {counts['pairs']}, visits replayed "
+        f"{counts['visits']}, in box "
+        f"{counts['in_box']}, past the cuts {counts['past_cuts']}, "
+        f"contributing {counts['contributing']}; chunks replayed "
+        f"{int(exit_k.long().sum())}")
+    return {"max_abs_err": max(r["max_abs"] for r in rows), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "rows": rows, "work": counts,
+            "operations": ops, "bytes": nbytes}
+
+
+def configs_2d(gt, splats, cfg):
+    """The 2D kernel checks' configurations: bench.py's scene in
+    render_mode_2d with the default record precision, and with the depth
+    channel (NC = 4) on the first N_DEPTH_2D splats."""
+    c2d = cfg.replace(render_mode_2d=True)
+    return [("2d-mixed", c2d, splats),
+            ("2d-depth", c2d.replace(return_depth=True),
+             subset(gt, splats, N_DEPTH_2D))]
+
+
+def check_b3_b4_all(gt, cs, splats, cam, cfg):
+    """check_b3 and check_b4 on both 2D configurations.  Each kernels-line
+    entry takes its times and bound from the 2d-mixed configuration and
+    its max_abs_err from the worst one."""
+    entries = []
+    for name, check, src, line in (
+            ("surfel_fwd", check_b3, "surfel_fwd.cu", 130),
+            ("surfel_bwd", check_b4, "surfel_bwd.cu", 232)):
+        per_config = {n: check(cs, s, cam, n, c)
+                      for n, c, s in configs_2d(gt, splats, cfg)}
+        main = per_config["2d-mixed"]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"gaussiansplats3d_tpu_torch/csrc/{src}",
+            "replaces": f"gaussiansplats3d_tpu/render/pallas_surfel.py:{line}",
+            "launches": None,
+            "max_abs_err": max(r["max_abs_err"] for r in per_config.values()),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "per_config": per_config})
+    return entries
+
+
+def kernel_launches(cr, cs):
+    """(B1, B2, B3, B4) launch counts."""
+    return (cr.launches, cr.bwd_launches, cs.launches, cs.bwd_launches)
+
+
+def reset_all(cr, cs):
+    cr.reset_launches()
+    cs.reset_launches()
+
+
+def main_path_2d(gt, cr, cs, splats, cam, cfg):
+    """2D serving: RENDERS renders through render() under no_grad, the
+    counters zeroed just before and read just after: B3 once a render, B1,
+    B2 and B4 never."""
+    with torch.no_grad():
+        gt.render(splats, cam, cfg)                 # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all(cr, cs)
+        times, enqueue = [], []
+        for _ in range(RENDERS):
+            t0 = time.perf_counter()
+            out = gt.render(splats, cam, cfg, return_aux=True)
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = kernel_launches(cr, cs)
+    color, alpha = out["color"], out["alpha"]
+    if color.shape != (HEIGHT, WIDTH, 3) or alpha.shape != (HEIGHT, WIDTH):
+        raise AssertionError(f"2D image shapes {color.shape} {alpha.shape}")
+    if not bool(torch.isfinite(color).all()):
+        raise AssertionError("non-finite 2D color")
+    amin, amax = float(alpha.min()), float(alpha.max())
+    if not (amin >= 0.0 and amax <= 1.0 + 1e-5 and amax > 0.5):
+        raise AssertionError(f"2D alpha range {amin} {amax}")
+    res = {"median_ms": float(np.median(times)), "times_ms": times,
+           "enqueue_median_ms": float(np.median(enqueue)),
+           "num_pairs": int(out["num_pairs"]),
+           "overflow": int(out["overflow"]),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches_b1_b2_b3_b4": launches,
+           "alpha_mean": float(alpha.mean()), "alpha_range": [amin, amax]}
+    log(f"2D main path: median {res['median_ms']:.2f} ms over {RENDERS} "
+        f"renders ({', '.join(f'{x:.2f}' for x in times)}), enqueue median "
+        f"{res['enqueue_median_ms']:.2f} ms; num_pairs {res['num_pairs']} "
+        f"overflow {res['overflow']}; peak memory "
+        f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; (B1, B2, B3, B4) "
+        f"launches {launches}; alpha mean {res['alpha_mean']:.4f}")
+    if res["overflow"]:
+        log(f"2D main path: overflow {res['overflow']} pairs dropped at the "
+            f"default aux_multiplier {cfg.aux_multiplier}")
+    if launches != (0, 0, RENDERS, 0):
+        raise AssertionError(f"(B1, B2, B3, B4) launched {launches} times "
+                             f"in {RENDERS} 2D renders")
+    return res
+
+
+def stage_breakdown_2d(splats, cam, cfg):
+    """Milliseconds of each stage of one 2D render (CUDA events)."""
+    from gaussiansplats3d_tpu_torch.render import pipeline, surfel
+    with torch.no_grad():
+        sp = surfel.project_surfels(splats, cam, cfg)
+        binned = surfel.bin_sort_surfels(sp, cfg)
+        comp = surfel.composite_surfels_sorted(cfg, *binned[:3], 0,
+                                               cfg.num_tiles)
+        stages = {
+            "project_surfels": cuda_ms(
+                lambda: surfel.project_surfels(splats, cam, cfg), 3),
+            "bin_sort_surfels": cuda_ms(
+                lambda: surfel.bin_sort_surfels(sp, cfg), 3),
+            "composite_surfels_sorted (B3)": cuda_ms(
+                lambda: surfel.composite_surfels_sorted(
+                    cfg, *binned[:3], 0, cfg.num_tiles), 3),
+            "assembly": cuda_ms(lambda: pipeline.assemble_image(
+                surfel.chans_from_colors_logt(*comp), cfg), 3),
+        }
+    log("stages 2d (ms): " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in stages.items()))
+    return stages
+
+
+def train_path_2d(gt, cr, cs, splats, cam, cfg):
+    """bench.py's step in 2D: STEPS timed steps after a warm-up, the
+    counters zeroed just before and read just after: B3 and B4 once a
+    step, B1 and B2 never.  Every gradient finite and nonzero but
+    scales[:, 2], which surfels never read: exactly 0."""
+    s = grad_splats(gt, splats)
+    grad_step(gt, s, cam, cfg)                      # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all(cr, cs)
+    times = []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        grad_step(gt, s, cam, cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = kernel_launches(cr, cs)
+    grads = {}
+    for f in FIELDS:
+        g = getattr(s, f).grad
+        if g is not None and f == "scales":
+            if float(g[:, 2].abs().max()) != 0.0:
+                raise AssertionError("2D: scales[:, 2] has a gradient")
+            g = g[:, :2]
+        if g is None or not bool(torch.isfinite(g).all()) \
+                or float(g.abs().max()) == 0.0:
+            raise AssertionError(f"2D gradient of {f} is missing, "
+                                 f"non-finite or zero")
+        grads[f] = float(g.abs().max())
+    med = float(np.median(times))
+    res = {"median_ms": med, "times_ms": times,
+           "msplats_per_s": N_SPLATS / (med / 1e3) / 1e6,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches_b1_b2_b3_b4": launches, "grad_max_abs": grads}
+    log(f"2D train step: median {med:.2f} ms over {STEPS} steps "
+        f"({', '.join(f'{x:.2f}' for x in times)}); "
+        f"{res['msplats_per_s']:.3f} Msplats/s; peak memory "
+        f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; (B1, B2, B3, B4) "
+        f"launches {launches}; max |grad| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in grads.items())
+        + "; scales[:, 2] exactly 0")
+    if launches != (0, 0, STEPS, STEPS):
+        raise AssertionError(f"(B1, B2, B3, B4) launched {launches} times "
+                             f"in {STEPS} 2D steps")
+    return res
+
+
+def fit_2d(gt, cs, device, steps=11):
+    """A small 2D fit through make_train_step, as tests/test_sharded.py's
+    test_train_step_2d_surfel_reduces_loss: flat surfels (scales[:, 2] =
+    1e-6), 64x64, 256 splats, Adam at 2e-2 towards another scene's
+    render; the loss must fall below 0.9 of the first step's, B3 and B4
+    once a step."""
+    from gaussiansplats3d_tpu_torch.parallel import train
+
+    def flat(seed):
+        arrays = fit_scene(256, seed)
+        arrays[1][:, 2] = 1e-6
+        return gt.SplatData.from_numpy(*arrays, device=device)
+
+    cfg = gt.RenderConfig(width=64, height=64, sort_bits=14,
+                          render_mode_2d=True)
+    cam = gt.Camera.look_at((2.4, 1.5, 2.2), (0, 0, 0), fov_y_deg=60.0,
+                            device=device)
+    with torch.no_grad():
+        target = gt.render(flat(11), cam, cfg)["color"]
+    tiles, mask = train.image_to_tile_blocks(target, cfg)
+    state = train.TrainState.create(flat(12), train.adam(2e-2))
+    step = train.make_train_step(cfg, None, train.adam(2e-2))
+    cs.reset_launches()
+    losses = []
+    for _ in range(steps):
+        state, m = step(state, cam, tiles, mask)
+        losses.append(float(m["loss"]))
+    launches = (cs.launches, cs.bwd_launches)
+    log(f"2D fit (64x64, 256 surfels, {steps} Adam steps): losses "
+        f"{[round(v, 6) for v in losses]}, (B3, B4) launches {launches}")
+    if not (np.isfinite(losses).all() and losses[-1] < 0.9 * losses[0]):
+        raise AssertionError(f"2D fit did not reduce the loss: {losses}")
+    if launches != (steps, steps):
+        raise AssertionError(f"2D fit launched (B3, B4) {launches} times")
+    return losses
+
+
+def small_2d(gt, device):
+    """At 3000 splats, 256x192, 2D with the depth channel and f32 records:
+    the CUDA render against the port's render_2d oracle on the card and
+    against the CPU render (images), and the gradients of mean(color^2) +
+    mean(depth^2) over a background against the CPU's (each field
+    normalised by its max |CPU|), by error mass (p99.9 <= 1e-3, <= 0.1%
+    over 1e-2)."""
+    from gaussiansplats3d_tpu_torch.render.surfel import render_2d
+    cfg = gt.RenderConfig(width=256, height=192, sh_degree=SH_DEGREE,
+                          return_depth=True, render_mode_2d=True,
+                          record_precision="f32", background=(0.2, 0.3, 0.4))
+    outs, grads = {}, {}
+    for dev in (device, "cpu"):
+        gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
+        s = gt.random_splats(gen, 3000, sh_degree=SH_DEGREE, device="cpu")
+        s = gt.SplatData(*(getattr(s, f).to(dev).requires_grad_(True)
+                           for f in FIELDS))
+        cam = gt.Camera.look_at((2.5, 1.5, 2.5), (0, 0, 0), fov_y_deg=60.0,
+                                aspect=256 / 192, device=dev)
+        out = gt.render(s, cam, cfg)
+        ((out["color"] ** 2).mean() + (out["depth"] ** 2).mean()).backward()
+        outs[str(dev)] = {k: v.detach().cpu() for k, v in out.items()}
+        grads[str(dev)] = {f: getattr(s, f).grad.cpu() for f in FIELDS}
+        if dev == device:
+            with torch.no_grad():
+                oracle = {k: v.cpu() for k, v in render_2d(s, cam,
+                                                           cfg).items()}
+    got = outs[str(device)]
+    for ref_name, ref in (("oracle", oracle), ("cpu", outs["cpu"])):
+        for k in ("color", "alpha", "depth"):
+            _, p999, over = error_mass(got[k], ref[k])
+            log(f"small 2D render vs {ref_name} {k}: p99.9 {p999:.3e} share "
+                f"over 1e-2 {over:.3e}")
+            if not (p999 <= 1e-3 and over <= 1e-3):
+                raise AssertionError(f"small 2D render {k} vs {ref_name}")
+    for f in FIELDS:
+        ref = grads["cpu"][f]
+        scale = float(ref.abs().max())
+        _, p999, over = error_mass(grads[str(device)][f] / scale, ref / scale)
+        log(f"small 2D gradients vs cpu {f}: p99.9 {p999:.3e} share over "
+            f"1e-2 {over:.3e} (max |cpu| {scale:.3e})")
+        if not (p999 <= 1e-3 and over <= 1e-3):
+            raise AssertionError(f"small 2D gradient {f} vs cpu")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -902,12 +1419,14 @@ def main():
     import gaussiansplats3d_tpu_torch as gt
     from gaussiansplats3d_tpu_torch import _build
     from gaussiansplats3d_tpu_torch.render import cuda_rasterize as cr
+    from gaussiansplats3d_tpu_torch.render import cuda_surfel as cs
 
     device = torch.device("cuda")
     toolchain(_build)
     splats, cam, cfg = make_scene(gt, device)
     b1 = check_b1_all(cr, splats, cam, cfg)
     b2 = check_b2_all(cr, splats, cam, cfg)
+    cs.reset_launches()
     runs, launches = main_path(gt, cr, splats, cam, cfg)
     b1["main_path"] = runs
     b1["stages_ms"] = stage_breakdown(splats, cam, cfg)
@@ -927,7 +1446,30 @@ def main():
     train_scene_run()
     small_correctness(gt, device)
     small_gradients(gt, device)
-    log(json.dumps({"kernels": [b1, b2]}))
+    if (cs.launches, cs.bwd_launches) != (0, 0):
+        raise AssertionError("B3 or B4 launched on a 3D path")
+
+    cfg2d = cfg.replace(render_mode_2d=True)
+    b3, b4 = check_b3_b4_all(gt, cs, splats, cam, cfg)
+    run2d = main_path_2d(gt, cr, cs, splats, cam, cfg2d)
+    b3["main_path"] = run2d
+    b3["stages_ms"] = stage_breakdown_2d(splats, cam, cfg2d)
+    b3["profile"] = profile_render(gt, splats, cam, cfg2d,
+                                   run2d["median_ms"])
+    step2d = train_path_2d(gt, cr, cs, splats, cam, cfg2d)
+    b3["launches"] = run2d["launches_b1_b2_b3_b4"][2] \
+        + step2d["launches_b1_b2_b3_b4"][2]
+    b3["launches_by_path"] = {
+        "render_2d": run2d["launches_b1_b2_b3_b4"][2],
+        "train_step_2d": step2d["launches_b1_b2_b3_b4"][2]}
+    b4["launches"] = step2d["launches_b1_b2_b3_b4"][3]
+    b4["train_path"] = step2d
+    b4["profile"] = profile_step(gt, splats, cam, cfg2d,
+                                 step2d["median_ms"])
+    b4["adam_steps"] = adam_steps(cs, splats, cam, cfg2d)
+    b4["fit_2d_losses"] = fit_2d(gt, cs, device)
+    small_2d(gt, device)
+    log(json.dumps({"kernels": [b1, b2, b3, b4]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,13 @@
 """gaussiansplats3d_tpu_torch — the PyTorch/CUDA port of gaussiansplats3d_tpu.
 
 The JAX package beside it is the reference; this package imports neither
-JAX nor anything of it.  It ports the forward 3DGS render: projection, tile
-binning and depth sort, the tile compositor (a hand-written CUDA kernel for
-Hopper, with a plain PyTorch version for CPU tensors) and image assembly.
-Constructors put tensors on ``cuda`` unless given ``device="cpu"``.
+JAX nor anything of it.  It ports the 3DGS render and its gradients:
+projection, tile binning and depth sort, the tile compositor forward and
+backward (hand-written CUDA kernels for Hopper, with plain PyTorch versions
+for CPU tensors) and image assembly; training on one GPU; and the 2DGS
+surfel mode (``RenderConfig(render_mode_2d=True)``) with its own compositor
+kernels.  Constructors put tensors on ``cuda`` unless given
+``device="cpu"``.
 """
 
 from .core.types import Camera, RenderConfig, SplatData, random_splats  # noqa: F401

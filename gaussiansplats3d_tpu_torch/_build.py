@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), at first use, into ``_build/`` beside this file (git-ignored).
-The library's name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded.  ``-Xptxas -v``
+The library's name carries a hash of its source, the ``csrc/`` headers it
+includes and the flags, so an edited source or header is rebuilt and a
+stale library is never loaded.  ``-Xptxas -v``
 reports each kernel's registers, shared memory and spills; the report is
 kept beside the library (:func:`ptxas_report`).
 
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -24,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("composite_fwd", "composite_bwd")
+KERNELS = ("composite_fwd", "composite_bwd", "surfel_fwd", "surfel_bwd")
 # No --use_fast_math: __expf/__logf would flip the compositor's hard
 # thresholds (min_alpha, the 0.999 clamp, the 1e-4 exit).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,10 +48,19 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _local_headers(src: Path) -> list[Path]:
+    """The csrc/ headers ``src`` includes with ``#include "..."``."""
+    names = re.findall(r'^\s*#\s*include\s+"([^"]+)"', src.read_text(),
+                       flags=re.MULTILINE)
+    return [CSRC / n for n in names]
+
+
 def _paths(name: str) -> tuple[Path, Path, Path]:
     src = CSRC / f"{name}.cu"
+    # the headers' bytes too: an edited header must not load a stale build
+    text = b"".join(p.read_bytes() for p in [src, *_local_headers(src)])
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     return src, lib, lib.with_suffix(".ptxas.txt")
 

@@ -187,6 +187,17 @@ class RenderConfig:
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
 
+    def check_backend(self, device: torch.device) -> None:
+        """Raise unless ``backend`` suits tensors on ``device``: 'auto'
+        suits any device ('cuda' on a CUDA device, 'torch' on the CPU), an
+        explicit backend only its own.  The route itself is chosen by the
+        tensors' device in each kernel's wrapper."""
+        if self.backend == "cuda" and device.type != "cuda":
+            raise ValueError(f"backend 'cuda' needs CUDA tensors, got {device}")
+        if self.backend == "torch" and device.type != "cpu":
+            raise ValueError(f"backend 'torch' runs on CPU tensors, got "
+                             f"{device}")
+
 
 def derive_focal(proj: torch.Tensor, width: int, height: int
                  ) -> torch.Tensor:

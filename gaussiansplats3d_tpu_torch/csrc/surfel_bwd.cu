@@ -1,0 +1,270 @@
+// Surfel tile compositor, backward (kernel B4 of the port) for sm_90a.
+//
+// Replaces the JAX package's Pallas kernel
+// gaussiansplats3d_tpu/render/pallas_surfel.py::_bwd.  The Python side, its
+// checks and its plain PyTorch version (composite_surfel_bwd_torch, whose
+// fragment chain is torch.autograd's) live in render/cuda_surfel.py.
+//
+// B2 (composite_bwd.cu) with the surfel fragment and its hand-derived
+// transpose.  One block per tile of kThreads = 256 threads (fewer for tiles
+// under 256 pixels, rounded up to whole warps), each thread holding up to
+// kMaxPix = 4 pixels, tid + q * blockDim: the transpose keeps about twice
+// B2's live values, more than the 64 registers a thread 1,024 threads
+// could have.  The tile's chunks are replayed in reverse, exit_k - 1 down
+// to 0; for each chunk:
+//
+// 1. the chunk's 128 records are staged in shared memory;
+// 2. for each of its pixels a thread recomputes the chunk's log-
+//    transmittance sum with B3's loop (same order, surfel::fragment,
+//    log1pf), so logt_before = logt_after - max(chunk_log, cs_floor)
+//    undoes B3's accumulation bit for bit;
+// 3. the pairs are swept backwards.  For pair i at a pixel, with
+//    excl_i = chunk_log - (sum of log(1 - alpha_j), j >= i):
+//      T_i     = exp(excl_i + logt_before),  w = alpha T_i
+//      cg      = sum_c chan_c gcol_c
+//      S       = sum of w_j cg_j over the pairs behind i
+//      d_alpha = T_i cg - S / (1 - alpha) - glogt / (1 - alpha)  (1 - alpha
+//                floored at 1e-6), 0 unless 0 < alpha < 0.99
+//    then the transpose of the fragment (pallas_surfel.py:331-379):
+//      d_opa = d_alpha ea,  d_rho = -d_alpha opa ea / 2, to rho3d or rho2d
+//      rho2d: d_dx = 4 dx d_rho, d_dy = 4 dy d_rho
+//      rho3d: d_su = 2 su d_rho, d_sv = 2 sv d_rho;  d_p = (d_su, d_sv,
+//             -(su d_su + sv d_sv)) / p.z;  d_k = l x d_p, d_l = d_p x k
+//      t_i0 = -d_k_i, t_i1 = -d_l_i, t_i2 = px d_k_i + py d_l_i (T row i),
+//      center = -(d_dx, d_dy), chan_c = w gcol_c, opacity = d_opa;
+// 4. each pair's NC + 12 terms are summed over the thread's pixels, over
+//    the warp by shuffles, then across warps by shared-memory adds into
+//    sacc[NC + 12][128]; a warp in which no pixel passes the pair's culls
+//    skips the pair (__any_sync);
+// 5. the window's slots of sacc are written to grad: a slot lies in one
+//    tile's window only, so the writes are exclusive (no global atomics).
+//    The wrapper zero-fills grad; rx, ry and slots outside the windows or
+//    past exit_k stay 0.
+//
+// What bounds it on the H100: as B3, the pair-pixel visits (twice: the
+// chunk sum's recompute and the sweep), plus the transpose and reductions
+// of the visits that pass the culls; arithmetic, not memory.
+//
+// Inputs: records [NC + 14, S] (surfel_fragment.cuh), B3's residuals logt
+// [T, P] and exit_k [T], the cotangents gcol [T, P, NC] and glogt [T, P].
+// Output grad [NC + 14, S] float32.
+
+#include <cuda_runtime.h>
+
+#include "surfel_fragment.cuh"
+
+namespace {
+
+using surfel::kChunk;
+
+constexpr int kThreads = 256;
+constexpr int kMaxPix = 4;       // pixels a thread: 1024 / kThreads
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+template <int NC>
+__global__ void __launch_bounds__(kThreads)
+surfel_bwd_kernel(const float* __restrict__ rec, long long s_total,
+                  const int* __restrict__ starts,
+                  const int* __restrict__ counts,
+                  const int* __restrict__ ids,
+                  const float* __restrict__ logt,
+                  const int* __restrict__ exit_k,
+                  const float* __restrict__ gcol,
+                  const float* __restrict__ glogt, int ts, int tiles_x,
+                  float min_alpha, float cs_floor,
+                  float* __restrict__ grad) {
+  constexpr int kFields = NC + 14;
+  constexpr int kTerms = NC + 12;  // T (9), center (2), NC channels, opacity
+  __shared__ float srec[kFields][kChunk];
+  __shared__ float sacc[kTerms][kChunk];
+
+  const int tile = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int npix = ts * ts;
+  const int start = starts[tile];
+  const int count = counts[tile];
+  const int id = ids[tile];
+  const int start_chunk = start / kChunk;
+  const float x0 = static_cast<float>(id % tiles_x) * static_cast<float>(ts);
+  const float y0 = static_cast<float>(id / tiles_x) * static_cast<float>(ts);
+
+  bool has[kMaxPix];
+  float px[kMaxPix], py[kMaxPix], gl[kMaxPix], lt_after[kMaxPix];
+  float sg[kMaxPix];  // sum of w cg over every pair behind the current one
+  float gc[kMaxPix][NC];
+#pragma unroll
+  for (int q = 0; q < kMaxPix; ++q) {
+    const int pix = tid + q * nthreads;
+    has[q] = pix < npix;
+    const int pp = has[q] ? pix : 0;
+    // GL pixel centre, as B3 computes it
+    px[q] = x0 + static_cast<float>(pp % ts) + 0.5f;
+    py[q] = y0 + static_cast<float>(pp / ts) + 0.5f;
+    const long long at = static_cast<long long>(tile) * npix + pp;
+    gl[q] = has[q] ? glogt[at] : 0.0f;
+    lt_after[q] = has[q] ? logt[at] : 0.0f;
+    sg[q] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) gc[q][c] = has[q] ? gcol[at * NC + c] : 0.0f;
+  }
+
+  for (int k = exit_k[tile] - 1; k >= 0; --k) {
+    const long long base = static_cast<long long>(start_chunk + k) * kChunk;
+    __syncthreads();  // the previous chunk's records and sums are consumed
+    for (int i = tid; i < kFields * kChunk; i += nthreads) {
+      const int f = i / kChunk;
+      const int l = i - f * kChunk;
+      const long long slot = base + l;
+      srec[f][l] = slot < s_total ? rec[f * s_total + slot] : 0.0f;
+    }
+    for (int i = tid; i < kTerms * kChunk; i += nthreads) {
+      sacc[i / kChunk][i % kChunk] = 0.0f;
+    }
+    __syncthreads();
+    const int lo = max(static_cast<int>(start - base), 0);
+    const int hi = min(static_cast<int>(start + count - base), kChunk);
+
+    // B3's loop for each pixel: the same chunk_log bits.
+    float chunk_log[kMaxPix], lt_before[kMaxPix], rest[kMaxPix];
+#pragma unroll
+    for (int q = 0; q < kMaxPix; ++q) {
+      chunk_log[q] = 0.0f;
+      rest[q] = 0.0f;
+      if (has[q]) {
+        for (int l = lo; l < hi; ++l) {
+          surfel::Fragment f;
+          if (!surfel::fragment<NC>(&srec[0][l], px[q], py[q], min_alpha, f)) {
+            continue;
+          }
+          chunk_log[q] += log1pf(-f.alpha);
+        }
+      }
+      lt_before[q] = lt_after[q] - fmaxf(chunk_log[q], cs_floor);
+    }
+
+    // Reverse sweep.  Every lane runs every iteration (no early continue
+    // before the vote) so the warp collectives see the whole warp.
+    for (int l = hi - 1; l >= lo; --l) {
+      float term[kTerms];
+#pragma unroll
+      for (int j = 0; j < kTerms; ++j) term[j] = 0.0f;
+      bool any = false;
+#pragma unroll
+      for (int q = 0; q < kMaxPix; ++q) {
+        surfel::Fragment f;
+        if (!has[q] ||
+            !surfel::fragment<NC>(&srec[0][l], px[q], py[q], min_alpha, f)) {
+          continue;
+        }
+        any = true;
+        rest[q] += log1pf(-f.alpha);
+        const float t_i = expf(chunk_log[q] - rest[q] + lt_before[q]);
+        const float w = f.alpha * t_i;
+        float cg = 0.0f;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) cg += srec[11 + c][l] * gc[q][c];
+        float d_alpha = 0.0f;
+        if (f.alpha > 0.0f && f.alpha < surfel::kAlphaMax) {
+          const float one_minus = fmaxf(1.0f - f.alpha, 1e-6f);
+          d_alpha = t_i * cg - sg[q] / one_minus - gl[q] / one_minus;
+        }
+        sg[q] += w * cg;
+
+        // the fragment's transpose
+        const float d_rho = d_alpha * srec[11 + NC][l] * f.ea * -0.5f;
+        float d_su = 0.0f, d_sv = 0.0f, d_dx = 0.0f, d_dy = 0.0f;
+        if (f.use3d) {
+          d_su = 2.0f * f.su * d_rho;
+          d_sv = 2.0f * f.sv * d_rho;
+        } else {
+          d_dx = 4.0f * f.dx * d_rho;
+          d_dy = 4.0f * f.dy * d_rho;
+        }
+        const float inv_p2 = 1.0f / f.p2;
+        const float d_p0 = d_su * inv_p2;
+        const float d_p1 = d_sv * inv_p2;
+        const float d_p2 = -(f.su * d_su + f.sv * d_sv) * inv_p2;
+        const float d_k0 = f.l1 * d_p2 - f.l2 * d_p1;
+        const float d_k1 = f.l2 * d_p0 - f.l0 * d_p2;
+        const float d_k2 = f.l0 * d_p1 - f.l1 * d_p0;
+        const float d_l0 = f.k2 * d_p1 - f.k1 * d_p2;
+        const float d_l1 = f.k0 * d_p2 - f.k2 * d_p0;
+        const float d_l2 = f.k1 * d_p0 - f.k0 * d_p1;
+        term[0] -= d_k0;
+        term[1] -= d_l0;
+        term[2] += px[q] * d_k0 + py[q] * d_l0;
+        term[3] -= d_k1;
+        term[4] -= d_l1;
+        term[5] += px[q] * d_k1 + py[q] * d_l1;
+        term[6] -= d_k2;
+        term[7] -= d_l2;
+        term[8] += px[q] * d_k2 + py[q] * d_l2;
+        term[9] -= d_dx;
+        term[10] -= d_dy;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) term[11 + c] += w * gc[q][c];
+        term[11 + NC] += d_alpha * f.ea;
+      }
+      if (!__any_sync(0xffffffffu, any)) continue;  // warp-uniform
+#pragma unroll
+      for (int j = 0; j < kTerms; ++j) {
+        const float v = warp_sum(term[j]);
+        if (lane == 0 && v != 0.0f) atomicAdd(&sacc[j][l], v);
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < kTerms * kChunk; i += nthreads) {
+      const int f = i / kChunk;
+      const int l = i - f * kChunk;
+      if (l >= lo && l < hi) grad[f * s_total + base + l] = sacc[f][l];
+    }
+#pragma unroll
+    for (int q = 0; q < kMaxPix; ++q) lt_after[q] = lt_before[q];
+  }
+}
+
+}  // namespace
+
+// Launches B4 on `stream` over num_tiles tiles and returns
+// cudaGetLastError() (0 when the launch was accepted).  grad must be
+// zero-filled by the caller.
+extern "C" int surfel_bwd(const float* rec, long long s_total, int nc,
+                          const int* starts, const int* counts,
+                          const int* ids, const float* logt,
+                          const int* exit_k, const float* gcol,
+                          const float* glogt, int num_tiles, int ts,
+                          int tiles_x, float min_alpha, float cs_floor,
+                          float* grad, void* stream) {
+  const int npix = ts * ts;
+  if (npix > kThreads * kMaxPix) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (num_tiles > 0) {
+    const dim3 grid(num_tiles);
+    // whole warps (the sweep's collectives), at most kThreads
+    const int warps = (npix + 31) / 32;
+    const dim3 block(warps * 32 < kThreads ? warps * 32 : kThreads);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (nc == 3) {
+      surfel_bwd_kernel<3><<<grid, block, 0, s>>>(
+          rec, s_total, starts, counts, ids, logt, exit_k, gcol, glogt, ts,
+          tiles_x, min_alpha, cs_floor, grad);
+    } else if (nc == 4) {
+      surfel_bwd_kernel<4><<<grid, block, 0, s>>>(
+          rec, s_total, starts, counts, ids, logt, exit_k, gcol, glogt, ts,
+          tiles_x, min_alpha, cs_floor, grad);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}

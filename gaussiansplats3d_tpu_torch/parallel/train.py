@@ -7,9 +7,11 @@ Parameterization (standard 3DGS training form, as the JAX package's):
   - ``quats``         — unnormalized; the renderer normalizes internally
   - ``rgb``, ``sh``   — raw
 
-A step renders through the port's tiled path (projection, binning, kernels
-B1 and B2 on a CUDA device), takes the masked mean squared error of the
-tile blocks and applies the optimizer.  The multi-GPU mesh is not ported
+A step renders the tile blocks through ``pipeline.render_tiles``, which
+routes as ``render()`` does (projection, binning, kernels B1 and B2 on a
+CUDA device; with ``cfg.render_mode_2d`` the surfel path, kernels B3 and
+B4), takes the masked mean squared error of the tile blocks and applies
+the optimizer.  The multi-GPU mesh is not ported
 yet: ``mesh`` must be None.
 """
 
@@ -24,9 +26,7 @@ import torch
 from torch import nn
 
 from ..core.types import Camera, RenderConfig, SplatData
-from ..render.binning import bin_sort_records
-from ..render.pipeline import composite_sorted
-from ..render.projection import project_splats
+from ..render.pipeline import render_tiles
 
 
 class SplatParams(nn.Module):
@@ -161,8 +161,7 @@ def make_train_step(cfg: RenderConfig, mesh, optimizer,
         if state.opt_state is None:
             state.opt_state = optimizer(params.parameters())
         state.opt_state.zero_grad(set_to_none=True)
-        proj = project_splats(params.to_splats(), camera, cfg)
-        chans = composite_sorted(cfg, bin_sort_records(proj, cfg))
+        chans, _, _ = render_tiles(params.to_splats(), camera, cfg)
         loss = tile_loss(chans, target_tiles, tile_mask, cfg)
         loss.backward()
         grads = []

@@ -18,7 +18,9 @@ unless ``cfg.forward_only``, by slot id on ties: the JAX package's unstable
 two-key sort with the slot operand as tie-breaker gives exactly that order.
 The records are then gathered by the sorted permutation.  (The JAX package
 lets the record fields ride the sort as value operands instead — a TPU
-workaround for slow gathers that the GPU does not need.)
+workaround for slow gathers that the GPU does not need.)  The expansion,
+sort and gather (:func:`expand_sort`) also bin the 2DGS surfel records
+(``surfel.bin_sort_surfels``), whose ties always break by slot id.
 
 The record codecs of ``mixed`` and ``packed`` precision change pixels, so
 each is applied here as an elementwise quantise-then-dequantise with the
@@ -296,38 +298,33 @@ def _record_fields(proj: ProjectedSplats, cfg: RenderConfig, rx, ry):
                                 rad_round_u8(ry)]
 
 
-def bin_sort_records(proj: ProjectedSplats, cfg: RenderConfig,
-                     tile_range: tuple | None = None,
-                     depth_bounds: tuple | None = None,
-                     row_window: tuple | None = None) -> SortedPairs:
-    """Expand splats into depth-sorted per-tile pair records.
-
-    ``tile_range``, ``depth_bounds`` and ``row_window`` belong to the
-    multi-GPU path, which is not ported yet.
-    """
+def check_unsharded(tile_range, depth_bounds, row_window) -> None:
+    """Raise for the multi-GPU binning arguments, which are not ported."""
     if tile_range is not None or depth_bounds is not None \
             or row_window is not None:
         raise NotImplementedError(
             "sharded binning (tile_range/depth_bounds/row_window) is not "
             "ported yet")
-    dev = proj.xs.device
-    n = proj.opacity.shape[0]
+
+
+def expand_sort(cfg: RenderConfig, tx0, ty0, wt, ht, counts, depth_q,
+                fields, opa_row: int, carry_slot: bool):
+    """Expand splats into (tile, splat) pair slots, sort the slots by
+    (tile, quantized depth) and, with ``carry_slot``, slot id on ties, and
+    gather the ``[N]`` record ``fields`` into that order.
+
+    ``tx0``/``ty0``/``wt``/``ht``/``counts`` are the rects of
+    :func:`tile_bounds`.  Returns ``(records [F, S], tile_starts,
+    tile_counts, total_pairs, overflow)``; row ``opa_row`` of records is 0
+    at every slot outside the tiles' windows.  The gather is
+    differentiable: its backward scatter-adds each pair's cotangent into
+    its source splat.
+    """
+    dev = depth_q.device
+    n = depth_q.shape[0]
     num_tiles = cfg.num_tiles
     lanes, aux_cap, pad = slot_layout_for(cfg, n)
     s_total = lanes * n + aux_cap + pad
-
-    depth_q = quantize_depth(proj.depth, proj.mask, cfg.sort_bits)
-    # The support box is a hard, gradient-free cutoff.
-    rx, ry = proj.rx.detach(), proj.ry.detach()
-    xs, ys = proj.xs.detach(), proj.ys.detach()
-    if cfg.record_precision == "packed":
-        # Rects from the values the compositor will read (box contract).
-        rx, ry = rad_round_u8(rx), rad_round_u8(ry)
-        scale = px_scale_for(cfg)
-        xs, ys = px_round(xs, scale), px_round(ys, scale)
-    tx0, tx1, ty0, ty1, counts = tile_bounds(xs, ys, rx, ry, proj.mask, cfg)
-    wt = tx1 - tx0 + 1
-    ht = ty1 - ty0 + 1
 
     small, lane_defs = _lane_tiles(cfg, counts, tx0, ty0, wt, ht)
     big = (counts >= 1) & ~small
@@ -383,21 +380,19 @@ def bin_sort_records(proj: ProjectedSplats, cfg: RenderConfig,
                        torch.full((s_total,), num_tiles, device=dev))
     depth = torch.cat(depths)
     shift = cfg.sort_bits
-    if not cfg.forward_only:
+    if carry_slot:
         # Slot id as the tie-breaker, as in the JAX package's sort.
         shift += max(1, (s_total - 1).bit_length())
     if num_tiles.bit_length() + shift > 63:
         raise ValueError("pair sort key exceeds 63 bits")
     key = (tile << shift) | (depth << (shift - cfg.sort_bits))
-    if not cfg.forward_only:
+    if carry_slot:
         key = key | torch.arange(s_total, device=dev)
     sorted_key, perm = torch.sort(key)
     sorted_tile = sorted_key >> shift
     src = torch.cat(srcs)[perm]
 
-    fields = _record_fields(proj, cfg, rx, ry)
     records = torch.stack(fields).index_select(1, src)
-    opa_row = len(fields) - 3
     records[opa_row] = torch.where(sorted_tile < num_tiles, records[opa_row],
                                    torch.zeros_like(records[opa_row]))
 
@@ -405,7 +400,34 @@ def bin_sort_records(proj: ProjectedSplats, cfg: RenderConfig,
     starts = torch.searchsorted(sorted_tile, tile_ids)
     ends = torch.searchsorted(sorted_tile, tile_ids, right=True)
     total = sum(v.sum() for v in valids[:lanes]) + total_aux
-    return SortedPairs(records=records,
-                       tile_starts=starts.to(torch.int32),
-                       tile_counts=(ends - starts).to(torch.int32),
-                       total_pairs=total, overflow=overflow)
+    return (records, starts.to(torch.int32), (ends - starts).to(torch.int32),
+            total, overflow)
+
+
+def bin_sort_records(proj: ProjectedSplats, cfg: RenderConfig,
+                     tile_range: tuple | None = None,
+                     depth_bounds: tuple | None = None,
+                     row_window: tuple | None = None) -> SortedPairs:
+    """Expand splats into depth-sorted per-tile pair records.
+
+    ``tile_range``, ``depth_bounds`` and ``row_window`` belong to the
+    multi-GPU path, which is not ported yet.
+    """
+    check_unsharded(tile_range, depth_bounds, row_window)
+    depth_q = quantize_depth(proj.depth, proj.mask, cfg.sort_bits)
+    # The support box is a hard, gradient-free cutoff.
+    rx, ry = proj.rx.detach(), proj.ry.detach()
+    xs, ys = proj.xs.detach(), proj.ys.detach()
+    if cfg.record_precision == "packed":
+        # Rects from the values the compositor will read (box contract).
+        rx, ry = rad_round_u8(rx), rad_round_u8(ry)
+        scale = px_scale_for(cfg)
+        xs, ys = px_round(xs, scale), px_round(ys, scale)
+    tx0, tx1, ty0, ty1, counts = tile_bounds(xs, ys, rx, ry, proj.mask, cfg)
+    fields = _record_fields(proj, cfg, rx, ry)
+    records, starts, tcounts, total, overflow = expand_sort(
+        cfg, tx0, ty0, tx1 - tx0 + 1, ty1 - ty0 + 1, counts, depth_q, fields,
+        opa_row=len(fields) - 3, carry_slot=not cfg.forward_only)
+    return SortedPairs(records=records, tile_starts=starts,
+                       tile_counts=tcounts, total_pairs=total,
+                       overflow=overflow)

@@ -78,13 +78,18 @@ def reset_launches() -> None:
     bwd_launches = 0
 
 
-def _check_inputs(records, starts, counts, ids, cfg: RenderConfig):
-    nf, s = records.shape
+def _check_inputs(records, starts, counts, ids, cfg: RenderConfig,
+                  rows: tuple = (11, 12)):
+    """Raise unless the compositor inputs are what the kernels take:
+    records ``[rows[0] or rows[1], S]`` float32 (S a multiple of 128),
+    ``[T]`` int32 windows and tile ids, all contiguous on one device."""
     if records.dtype != torch.float32 or records.dim() != 2:
-        raise ValueError("records must be a [NC + 8, S] float32 tensor")
-    if nf not in (11, 12) or s % CHUNK:
-        raise ValueError(f"records must be [11 or 12, S] with S a multiple "
-                         f"of {CHUNK}, got {tuple(records.shape)}")
+        raise ValueError("records must be a 2-D float32 tensor")
+    nf, s = records.shape
+    if nf not in rows or s % CHUNK:
+        raise ValueError(f"records must be [{rows[0]} or {rows[1]}, S] with "
+                         f"S a multiple of {CHUNK}, got "
+                         f"{tuple(records.shape)}")
     t = starts.shape[0]
     for name, v in (("tile_starts", starts), ("tile_counts", counts),
                     ("tile_ids", ids)):
@@ -231,8 +236,25 @@ def composite_fwd_torch(records, tile_starts, tile_counts, tile_ids,
     the pair-pixel entries inside the support boxes (:func:`_chunk_pairs`)
     and takes the in-chunk transmittance prefix as a run sum per pixel."""
     _check_inputs(records, tile_starts, tile_counts, tile_ids, cfg)
-    nf, s = records.shape
-    nc = nf - 8
+    nc = records.shape[0] - 8
+    return composite_chunks_torch(
+        records, tile_starts, tile_counts, tile_ids, cfg, nc, 5,
+        lambda rec, window, x0, y0: _chunk_pairs(rec, window, x0, y0, nc,
+                                                 cfg))
+
+
+def composite_chunks_torch(records, tile_starts, tile_counts, tile_ids,
+                           cfg: RenderConfig, nc: int, chan_row: int,
+                           entries):
+    """The chunk loop of the plain compositors (B1's and the surfel
+    compositor's): floor-aligned 128-pair chunk windows, the ``_CS_FLOOR``
+    clamp per chunk and the ``max T <= 1e-4`` exit, tiles ``_GROUP_SIZE``
+    at a time in lockstep.  ``entries(rec [NF, G, C], window [G, C], x0,
+    y0)`` gives a chunk's in-box pair-pixel entries as
+    :func:`_chunk_pairs` does (``seg``, ``rec`` and ``alpha`` are read);
+    records rows ``chan_row .. chan_row + nc`` are the channels.  Returns
+    ``(chans [T, NC + 1, P], logt [T, P], exit_k [T])``, alpha last."""
+    s = records.shape[1]
     t = tile_starts.shape[0]
     p = cfg.tile_size * cfg.tile_size
     dev = records.device
@@ -261,12 +283,12 @@ def composite_fwd_torch(records, tile_starts, tile_counts, tile_ids,
             rec = records[:, torch.clamp(gpos, max=s - 1)]       # [NF, G, C]
             window = (gpos >= start[:, None]) & (
                 gpos < (start + count)[:, None]) & active[:, None]
-            ent = _chunk_pairs(rec, window, x0, y0, nc, cfg)
+            ent = entries(rec, window, x0, y0)
             seg, alpha = ent["seg"], ent["alpha"]
             logw = torch.log1p(-alpha)
             excl, _, seg_u, total = _seg_scan(logw, seg)
             w = alpha * (torch.exp(excl) * trans[seg])
-            chan = torch.cat([ent["rec"][5:5 + nc],
+            chan = torch.cat([ent["rec"][chan_row:chan_row + nc],
                               torch.ones_like(alpha)[None]])
             col.index_add_(1, seg, chan * w)
             # pixels no pair reached composited nothing: csum is 0 there

@@ -1,0 +1,411 @@
+"""Surfel tile compositor, forward and backward: the hand-written CUDA
+kernels B3 and B4, their plain PyTorch versions, and the launch counters
+(counterpart of the JAX package's ``render/pallas_surfel.py``).
+
+**B3 replaces** ``gaussiansplats3d_tpu/render/pallas_surfel.py::_fwd`` and
+**B4** ``::_bwd``.  Sources ``csrc/surfel_fwd.cu`` and ``csrc/surfel_bwd.cu``;
+both include ``csrc/surfel_fragment.cuh``, the ray-plane fragment, written
+with round-to-nearest intrinsics (no FMA contraction), so B4 rebuilds each
+chunk's log-transmittance sum bit for bit as B3 computed it.  They are B1
+and B2 with the 2DGS fragment in place of the Gaussian one:
+
+    k = px Tw - Tu,  l = py Tw - Tv,  p = k x l,  s = p.xy / p.z
+    rho = min(|s|^2, 2 |pix - center|^2)
+    alpha = min(opacity exp(-rho / 2), 0.99), 0 where |p.z| < 1e-12, the
+            depth s . Tw.xy + Tw.z (Tw.z when the 2D term wins) < 0.2,
+            alpha < min_alpha, or the pixel lies outside the rx/ry box
+
+B3: one block per tile, one thread per pixel, the tile's records staged 128
+at a time in shared memory, floor-aligned 128-pair chunk windows, T kept as
+a product, log T as the sum of ``max(chunk_log, _CS_FLOOR)``, the tile stops
+once every pixel's T is at most 1e-4.  Outputs colors ``[T, P, NC]``, logt
+``[T, P]`` and exit_k ``[T]``.  B4: chunks ``exit_k - 1 .. 0`` in reverse,
+T_i in log space, the suffix of w cg, ``d_alpha = T cg - S / (1 - alpha) -
+glogt / (1 - alpha)`` (the image's alpha is ``1 - exp(logt)``, so glogt is
+nonzero whenever a loss sees the background), then the hand-derived
+transpose through the fragment to the 9 T entries, the center, the
+channels and the opacity, summed over the tile's pixels.  256 threads a
+tile, each with up to 4 pixels: the transpose keeps about twice B2's live
+values, which 1,024 threads of at most 64 registers could not hold.
+
+**What bounds them on the H100.**  As B1/B2: each pair is evaluated at
+every pixel of its tile until the tile exits, and each record is read once
+per tile: arithmetic, not memory.  The box test comes first and rejects
+most visits before the fragment's division and ``exp``.  Making them fast
+is later work.
+
+**Plain versions** (:func:`composite_surfel_fwd_torch`,
+:func:`composite_surfel_bwd_torch`): B3/B4's semantics (not the XLA
+compositor ``rasterize_surfel.py``, which has no exit and a -80 floor over
+the whole tile), evaluated on the in-box pair-pixel entries only.  The
+plain B4 takes the fragment's chain from ``torch.autograd`` of
+:func:`surfel_alpha`, so the card holds the kernel's hand-derived
+transpose against a machine-derived one.  The wrappers use them for CPU
+tensors only; for CUDA tensors they launch the kernels or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..core.types import RenderConfig
+from .cuda_rasterize import (CHUNK, _CS_FLOOR, _EXIT_T, _GROUP_SIZE,
+                             _check_inputs, _seg_scan, _tile_origins,
+                             composite_chunks_torch)
+
+ALPHA_MAX = 0.99
+NEAR_N = 0.2
+RECORD_ROWS = (17, 18)          # NC + 14 for NC = 3 (rgb) or 4 (+ depth)
+
+launches = 0
+"""Launches of the CUDA kernel B3 made by :func:`composite_surfel_fwd`."""
+bwd_launches = 0
+"""Launches of the CUDA kernel B4 made by :func:`composite_surfel_bwd`."""
+
+
+def reset_launches() -> None:
+    global launches, bwd_launches
+    launches = 0
+    bwd_launches = 0
+
+
+def surfel_alpha(t, cx, cy, opa, rx, ry, px, py, min_alpha):
+    """The surfel fragment's alpha, broadcasting the record fields (``t``:
+    the 9 row-major T entries; center, opacity, rx, ry) against the pixel
+    centers ``px``, ``py`` — the arithmetic of ``surfel_fragment.cuh`` and
+    of the JAX package's ``_surfel_chunk_alpha``.  Differentiable in T, the
+    center and the opacity; 0 (and no gradient) where culled."""
+    t00, t01, t02, t10, t11, t12, t20, t21, t22 = t
+    k0 = px * t02 - t00
+    k1 = px * t12 - t10
+    k2 = px * t22 - t20
+    l0 = py * t02 - t01
+    l1 = py * t12 - t11
+    l2 = py * t22 - t21
+    p0 = k1 * l2 - k2 * l1
+    p1 = k2 * l0 - k0 * l2
+    p2 = k0 * l1 - k1 * l0
+    tiny = torch.abs(p2) < 1e-12
+    sp2 = torch.where(tiny, torch.full_like(p2, 1e-12), p2)
+    su = p0 / sp2
+    sv = p1 / sp2
+    rho3d = su * su + sv * sv
+    dx = px - cx
+    dy = py - cy
+    rho2d = 2.0 * (dx * dx + dy * dy)
+    use3d = rho3d <= rho2d
+    rho = torch.where(use3d, rho3d, rho2d)
+    depth = torch.where(use3d, su * t02 + sv * t12 + t22, t22)
+    alpha = torch.clamp(opa * torch.exp(-0.5 * rho), max=ALPHA_MAX)
+    bad = (tiny | (depth < NEAR_N) | (alpha < min_alpha)
+           | (torch.abs(dx) > rx) | (torch.abs(dy) > ry))
+    return torch.where(bad, torch.zeros_like(alpha), alpha)
+
+
+def _check(records, starts, counts, ids, cfg: RenderConfig):
+    _check_inputs(records, starts, counts, ids, cfg, rows=RECORD_ROWS)
+
+
+@functools.cache
+def _kernel():
+    """B3's C entry point, built and loaded on first use."""
+    from .. import _build
+    fn = _build.load("surfel_fwd").surfel_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 4)
+    return fn
+
+
+@functools.cache
+def _bwd_kernel():
+    """B4's C entry point, built and loaded on first use."""
+    from .. import _build
+    fn = _build.load("surfel_bwd").surfel_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
+                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
+    return fn
+
+
+def composite_surfel_fwd_cuda(records, tile_starts, tile_counts, tile_ids,
+                              cfg: RenderConfig):
+    """Launch B3 on the current stream.  Inputs as
+    :func:`composite_surfel_fwd`, all on one CUDA device."""
+    global launches
+    _check(records, tile_starts, tile_counts, tile_ids, cfg)
+    if not records.is_cuda:
+        raise ValueError("composite_surfel_fwd_cuda needs CUDA tensors")
+    fn = _kernel()
+    nf, s = records.shape
+    nc = nf - 14
+    t = tile_starts.shape[0]
+    p = cfg.tile_size * cfg.tile_size
+    dev = records.device
+    colors = torch.empty((t, p, nc), dtype=torch.float32, device=dev)
+    logt = torch.empty((t, p), dtype=torch.float32, device=dev)
+    exit_k = torch.empty((t,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(records.data_ptr(), s, nc, tile_starts.data_ptr(),
+                 tile_counts.data_ptr(), tile_ids.data_ptr(), t,
+                 cfg.tile_size, cfg.tiles_x, cfg.min_alpha, _CS_FLOOR,
+                 _EXIT_T, colors.data_ptr(), logt.data_ptr(),
+                 exit_k.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"surfel_fwd kernel launch failed: CUDA error "
+                           f"{err}")
+    launches += 1
+    return colors, logt, exit_k
+
+
+def _surfel_entries(rec, window, x0, y0, nc, cfg: RenderConfig):
+    """The (tile, pixel, pair) entries of one chunk of a group of tiles
+    that lie inside the pair's rx/ry box, ordered by tile, pixel, then
+    pair, with their alpha (:func:`surfel_alpha`).  ``rec [NF, G, C]``,
+    ``window [G, C]``.  Returns a dict of [M] tensors: ``tile``, ``seg``
+    (tile * P + pixel), ``lane``, ``rec`` ([NF, M]), ``px``, ``py`` and
+    ``alpha``."""
+    ts = cfg.tile_size
+    pix = torch.arange(ts, device=rec.device).to(torch.float32)
+    # GL pixel centres, as (corner + index) + 0.5
+    pxs = x0[:, None] + pix + 0.5                                # [G, x]
+    pys = y0[:, None] + pix + 0.5                                # [G, y]
+    in_x = torch.abs(pxs[:, None, :] - rec[9][..., None]) \
+        <= rec[12 + nc][..., None]                               # [G, C, x]
+    in_y = torch.abs(pys[:, None, :] - rec[10][..., None]) \
+        <= rec[13 + nc][..., None]                               # [G, C, y]
+    in_y = in_y.permute(0, 2, 1) & window[:, None, :]            # [G, y, C]
+    box = in_y[:, :, None, :] & in_x.permute(0, 2, 1)[:, None]
+    tile, iy, ix, lane = box.nonzero(as_tuple=True)              # [G, y, x, C]
+    r = rec[:, tile, lane]                                       # [NF, M]
+    px, py = pxs[tile, ix], pys[tile, iy]
+    alpha = surfel_alpha(r[:9], r[9], r[10], r[11 + nc], r[12 + nc],
+                         r[13 + nc], px, py, cfg.min_alpha)
+    return {"tile": tile, "seg": tile * (ts * ts) + iy * ts + ix,
+            "lane": lane, "rec": r, "px": px, "py": py, "alpha": alpha}
+
+
+def composite_surfel_fwd_torch(records, tile_starts, tile_counts, tile_ids,
+                               cfg: RenderConfig):
+    """The plain PyTorch version of B3, on any device: B1's chunk loop
+    (``cuda_rasterize.composite_chunks_torch``) over the surfel fragment's
+    in-box entries."""
+    _check(records, tile_starts, tile_counts, tile_ids, cfg)
+    nc = records.shape[0] - 14
+    chans, logt, exit_k = composite_chunks_torch(
+        records, tile_starts, tile_counts, tile_ids, cfg, nc, 11,
+        lambda rec, window, x0, y0: _surfel_entries(rec, window, x0, y0, nc,
+                                                    cfg))
+    return chans[:, :nc].permute(0, 2, 1).contiguous(), logt, exit_k
+
+
+def composite_surfel_fwd(records, tile_starts, tile_counts, tile_ids,
+                         cfg: RenderConfig):
+    """B3 on the device the tensors lie on: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors.
+
+    Args:
+      records: ``[NC + 14, S]`` float32 field-major surfel records
+        (``surfel.bin_sort_surfels``: T row-major, center x/y, the NC
+        channels, opacity, rx, ry), S a multiple of 128.
+      tile_starts / tile_counts: ``[T]`` int32 pair windows per tile.
+      tile_ids: ``[T]`` int32 global tile ids (pixel placement).
+
+    Returns ``(colors [T, P, NC], logt [T, P], exit_k [T] int32)``: the
+    composited channels, the per-chunk-clamped log transmittance and the
+    chunks composited.
+    """
+    if records.is_cuda:
+        return composite_surfel_fwd_cuda(records, tile_starts, tile_counts,
+                                         tile_ids, cfg)
+    if records.device.type == "cpu":
+        return composite_surfel_fwd_torch(records, tile_starts, tile_counts,
+                                          tile_ids, cfg)
+    raise ValueError(f"no compositor for device {records.device}")
+
+
+def _check_bwd(records, starts, counts, ids, logt, exit_k, gcol, glogt,
+               cfg: RenderConfig):
+    _check(records, starts, counts, ids, cfg)
+    t = starts.shape[0]
+    p = cfg.tile_size * cfg.tile_size
+    nc = records.shape[0] - 14
+    for name, v, shape, dtype in (
+            ("logt", logt, (t, p), torch.float32),
+            ("exit_k", exit_k, (t,), torch.int32),
+            ("gcol", gcol, (t, p, nc), torch.float32),
+            ("glogt", glogt, (t, p), torch.float32)):
+        if v.dtype != dtype or tuple(v.shape) != shape:
+            raise ValueError(f"{name} must be {list(shape)} {dtype}, got "
+                             f"{list(v.shape)} {v.dtype}")
+        if v.device != records.device:
+            raise ValueError(f"{name} is on {v.device}, records on "
+                             f"{records.device}")
+        if not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def composite_surfel_bwd_cuda(records, tile_starts, tile_counts, tile_ids,
+                              logt, exit_k, gcol, glogt, cfg: RenderConfig):
+    """Launch B4 on the current stream.  Inputs as
+    :func:`composite_surfel_bwd`, all on one CUDA device."""
+    global bwd_launches
+    _check_bwd(records, tile_starts, tile_counts, tile_ids, logt, exit_k,
+               gcol, glogt, cfg)
+    if not records.is_cuda:
+        raise ValueError("composite_surfel_bwd_cuda needs CUDA tensors")
+    fn = _bwd_kernel()
+    nf, s = records.shape
+    t = tile_starts.shape[0]
+    dev = records.device
+    # slots outside every window and chunks past exit_k stay 0
+    grad = torch.zeros((nf, s), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(records.data_ptr(), s, nf - 14, tile_starts.data_ptr(),
+                 tile_counts.data_ptr(), tile_ids.data_ptr(),
+                 logt.data_ptr(), exit_k.data_ptr(), gcol.data_ptr(),
+                 glogt.data_ptr(), t, cfg.tile_size, cfg.tiles_x,
+                 cfg.min_alpha, _CS_FLOOR, grad.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"surfel_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+    bwd_launches += 1
+    return grad
+
+
+def composite_surfel_bwd_torch(records, tile_starts, tile_counts, tile_ids,
+                               logt, exit_k, gcol, glogt,
+                               cfg: RenderConfig):
+    """The plain PyTorch version of B4, on any device: the reverse replay
+    of chunks ``exit_k - 1 .. 0`` on B3's semantics, over the same in-box
+    entries as :func:`composite_surfel_fwd_torch`; the fragment's chain is
+    ``torch.autograd`` of :func:`surfel_alpha`.  Tiles go ``_GROUP_SIZE``
+    at a time, each group's chunk loop in lockstep."""
+    _check_bwd(records, tile_starts, tile_counts, tile_ids, logt, exit_k,
+               gcol, glogt, cfg)
+    nf, s = records.shape
+    nc = nf - 14
+    nd = nc + 12                  # rows with a gradient: all but rx, ry
+    t = tile_starts.shape[0]
+    p = cfg.tile_size * cfg.tile_size
+    dev = records.device
+    grad = torch.zeros((nf, s), dtype=torch.float32, device=dev)
+    lane = torch.arange(CHUNK, device=dev)
+    for g0 in range(0, t, _GROUP_SIZE):
+        g1 = min(g0 + _GROUP_SIZE, t)
+        n_g = g1 - g0
+        start = tile_starts[g0:g1].long()
+        count = tile_counts[g0:g1].long()
+        k_exit = exit_k[g0:g1].long()
+        x0, y0 = _tile_origins(tile_ids[g0:g1].long(), cfg)
+        start_chunk = torch.div(start, CHUNK, rounding_mode="floor")
+        gch = gcol[g0:g1].reshape(n_g * p, nc).T                 # [NC, G P]
+        gl = glogt[g0:g1].reshape(-1)
+        lt_after = logt[g0:g1].reshape(-1).clone()
+        sg = torch.zeros_like(lt_after)     # sum of w cg behind each pair
+        for k in range(int(k_exit.max()) - 1, -1, -1):
+            active = k < k_exit                                # [G]
+            gpos = (start_chunk + k)[:, None] * CHUNK + lane[None, :]
+            rec = records[:, torch.clamp(gpos, max=s - 1)]     # [NF, G, C]
+            window = (gpos >= start[:, None]) & (
+                gpos < (start + count)[:, None]) & active[:, None]
+            ent = _surfel_entries(rec, window, x0, y0, nc, cfg)
+            seg, r, alpha = ent["seg"], ent["rec"], ent["alpha"]
+            logw = torch.log1p(-alpha)
+            excl, _, seg_u, total = _seg_scan(logw, seg)
+            csum = torch.zeros_like(lt_after)
+            csum[seg_u] = total
+            lt_before = torch.where(
+                active.repeat_interleave(p),
+                lt_after - torch.clamp(csum, min=_CS_FLOOR), lt_after)
+            t_i = torch.exp(excl + lt_before[seg])
+            w = alpha * t_i
+            cg = sum(r[11 + c] * gch[c][seg] for c in range(nc))
+            u = w * cg
+            _, behind, _, _ = _seg_scan(u, seg)
+            one_minus = torch.clamp(1.0 - alpha, min=1e-6)
+            d_alpha = (t_i * cg - (behind + sg[seg]) / one_minus
+                       - gl[seg] / one_minus)
+            gate = (alpha > 0.0) & (alpha < ALPHA_MAX)
+            d_alpha = torch.where(gate, d_alpha, torch.zeros_like(d_alpha))
+            # the fragment's chain, machine-derived
+            with torch.enable_grad():
+                rg = r[:nd].detach().requires_grad_(True)
+                alpha_g = surfel_alpha(rg[:9], rg[9], rg[10], rg[11 + nc],
+                                       r[12 + nc], r[13 + nc], ent["px"],
+                                       ent["py"], cfg.min_alpha)
+                (terms,) = torch.autograd.grad(alpha_g, rg, d_alpha)
+            terms[11:11 + nc] += w * gch[:, seg]
+            acc = torch.zeros((nd, n_g * CHUNK), dtype=torch.float32,
+                              device=dev)
+            acc.index_add_(1, ent["tile"] * CHUNK + ent["lane"], terms)
+            # windows are disjoint: each slot is written by one tile only
+            grad[:nd, gpos[window]] = acc.view(nd, n_g, CHUNK)[:, window]
+            sg = sg.index_add(0, seg, u)
+            lt_after = lt_before
+    return grad
+
+
+def composite_surfel_bwd(records, tile_starts, tile_counts, tile_ids, logt,
+                         exit_k, gcol, glogt, cfg: RenderConfig):
+    """B4 on the device the tensors lie on: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors.
+
+    Args: B3's inputs and residuals (``records``, ``tile_starts``,
+    ``tile_counts``, ``tile_ids``, ``logt [T, P]``, ``exit_k [T]``), and
+    the cotangents ``gcol [T, P, NC]`` of B3's colors and ``glogt [T, P]``
+    of its logt.
+
+    Returns ``grad_records [NC + 14, S]`` in the record layout: T, the
+    center, the NC channels and the opacity; rx = ry = 0, and 0 at every
+    slot outside the tiles' windows or in chunks past ``exit_k``.
+    """
+    if records.is_cuda:
+        return composite_surfel_bwd_cuda(records, tile_starts, tile_counts,
+                                         tile_ids, logt, exit_k, gcol,
+                                         glogt, cfg)
+    if records.device.type == "cpu":
+        return composite_surfel_bwd_torch(records, tile_starts, tile_counts,
+                                          tile_ids, logt, exit_k, gcol,
+                                          glogt, cfg)
+    raise ValueError(f"no compositor for device {records.device}")
+
+
+class _CompositeSurfelTiles(torch.autograd.Function):
+    """Autograd boundary of the surfel compositor: B3 forward, B4 backward.
+    Both cotangents reach B4: the image's alpha is ``1 - exp(logt)``."""
+
+    @staticmethod
+    def forward(ctx, records, tile_starts, tile_counts, tile_ids, cfg):
+        colors, logt, exit_k = composite_surfel_fwd(
+            records, tile_starts, tile_counts, tile_ids, cfg)
+        ctx.mark_non_differentiable(exit_k)
+        ctx.save_for_backward(records, tile_starts, tile_counts, tile_ids,
+                              logt, exit_k)
+        ctx.cfg = cfg
+        return colors, logt, exit_k
+
+    @staticmethod
+    def backward(ctx, gcol, glogt, _gexit):
+        grad = composite_surfel_bwd(
+            *ctx.saved_tensors, gcol.to(torch.float32).contiguous(),
+            glogt.to(torch.float32).contiguous(), ctx.cfg)
+        return grad, None, None, None, None
+
+
+def composite_surfel_tiles(cfg: RenderConfig, records, tile_starts,
+                           tile_counts, tile_ids):
+    """The surfel compositor as the render path calls it: ``(colors, logt,
+    exit_k)`` of :func:`composite_surfel_fwd` behind a
+    ``torch.autograd.Function`` whose backward is
+    :func:`composite_surfel_bwd` (kernel B4 on a CUDA device, its plain
+    version on the CPU)."""
+    return _CompositeSurfelTiles.apply(records, tile_starts, tile_counts,
+                                       tile_ids, cfg)

@@ -11,7 +11,12 @@ The path is differentiable with respect to every ``SplatData`` field:
 autograd runs the projection's and assembly's backward, the compositor's
 backward is kernel B2 (its plain version on the CPU), and binning passes
 each pair's cotangent to its splat (straight-through codecs, scatter-add).
-The 2DGS surfel mode is not ported yet.
+
+With ``cfg.render_mode_2d`` the 2DGS surfel mode takes the same four steps
+through ``surfel.surfel_tiles``: ``project_surfels``, ``bin_sort_surfels``,
+the surfel compositor (kernels B3 forward and B4 backward), then
+``assemble_image``.  :func:`render_tiles` is the one place that chooses
+the route; :func:`render` and the training step both call it.
 """
 
 from __future__ import annotations
@@ -24,17 +29,7 @@ from ..core.types import Camera, RenderConfig, SplatData
 from .binning import SortedPairs, bin_sort_records
 from .cuda_rasterize import composite_tiles
 from .projection import project_splats
-
-
-def check_backend(cfg: RenderConfig, device: torch.device) -> None:
-    """Raise unless ``cfg.backend`` suits tensors on ``device``: 'auto'
-    suits any device ('cuda' on a CUDA device, 'torch' on the CPU), an
-    explicit backend only its own.  The route itself is chosen by the
-    tensors' device in ``cuda_rasterize.composite_fwd``."""
-    if cfg.backend == "cuda" and device.type != "cuda":
-        raise ValueError(f"backend 'cuda' needs CUDA tensors, got {device}")
-    if cfg.backend == "torch" and device.type != "cpu":
-        raise ValueError(f"backend 'torch' runs on CPU tensors, got {device}")
+from .surfel import surfel_tiles
 
 
 def _composite(cfg: RenderConfig, pairs: SortedPairs) -> torch.Tensor:
@@ -51,7 +46,7 @@ def composite_sorted(cfg: RenderConfig, pairs: SortedPairs) -> torch.Tensor:
     Differentiable with respect to ``pairs.records`` (B2 backward)."""
     if cfg.return_depth and pairs.num_channels != 4:
         raise ValueError("cfg.return_depth needs pairs binned with it")
-    check_backend(cfg, pairs.records.device)
+    cfg.check_backend(pairs.records.device)
     return _composite(cfg, pairs)
 
 
@@ -83,6 +78,28 @@ def assemble_image(chans: torch.Tensor, cfg: RenderConfig):
     return out
 
 
+def render_tiles(splats: SplatData, camera: Camera, cfg: RenderConfig,
+                 transforms: Optional[torch.Tensor] = None,
+                 scene_indices: Optional[torch.Tensor] = None,
+                 scene_opacities: Optional[torch.Tensor] = None,
+                 scene_visibility: Optional[torch.Tensor] = None,
+                 fade_params: Optional[tuple] = None):
+    """The composited tile blocks of the tiled path ``cfg`` selects:
+    ``(chans [T, NC + 1, P], num_pairs, overflow)``, alpha last in
+    ``chans``.  3D Gaussians (B1, B2 backward), or with
+    ``cfg.render_mode_2d`` the surfels (``surfel.surfel_tiles``: B3, B4
+    backward), which take no ``fade_params``, as in the JAX package."""
+    cfg.check_backend(splats.device)
+    if cfg.render_mode_2d:
+        return surfel_tiles(splats, camera, cfg, transforms, scene_indices,
+                            scene_opacities, scene_visibility)
+    proj = project_splats(splats, camera, cfg, transforms, scene_indices,
+                          scene_opacities, scene_visibility,
+                          fade_params=fade_params)
+    pairs = bin_sort_records(proj, cfg)
+    return _composite(cfg, pairs), pairs.total_pairs, pairs.overflow
+
+
 def render(splats: SplatData, camera: Camera, cfg: RenderConfig,
            transforms: Optional[torch.Tensor] = None,
            scene_indices: Optional[torch.Tensor] = None,
@@ -90,26 +107,37 @@ def render(splats: SplatData, camera: Camera, cfg: RenderConfig,
            scene_visibility: Optional[torch.Tensor] = None,
            fade_params: Optional[tuple] = None,
            return_aux: bool = False):
-    """Render one view through the tiled path.
+    """Render one view through the tiled path (:func:`render_tiles`, then
+    :func:`assemble_image`).
 
     Returns a dict with ``color`` [H, W, 3] and ``alpha`` [H, W]; with
     ``cfg.return_depth`` also ``depth`` [H, W]; with ``return_aux`` also
     ``num_pairs`` and ``overflow`` (aux pairs dropped), as 0-d tensors.
     The images are differentiable with respect to every ``SplatData``
-    field: a backward through them runs B1's backward, kernel B2, once.
+    field: a backward through them runs the compositor's backward kernel
+    once (B2, or B4 with ``cfg.render_mode_2d``).
     """
-    if cfg.render_mode_2d:
-        raise NotImplementedError("the 2DGS surfel mode is not ported yet")
-    check_backend(cfg, splats.device)
-    proj = project_splats(splats, camera, cfg, transforms, scene_indices,
-                          scene_opacities, scene_visibility,
-                          fade_params=fade_params)
-    pairs = bin_sort_records(proj, cfg)
-    out = assemble_image(_composite(cfg, pairs), cfg)
+    chans, num_pairs, overflow = render_tiles(
+        splats, camera, cfg, transforms, scene_indices, scene_opacities,
+        scene_visibility, fade_params)
+    out = assemble_image(chans, cfg)
     if return_aux:
-        out["num_pairs"] = pairs.total_pairs
-        out["overflow"] = pairs.overflow
+        out["num_pairs"] = num_pairs
+        out["overflow"] = overflow
     return out
+
+
+def render_2d_tiled(splats: SplatData, camera: Camera, cfg: RenderConfig,
+                    transforms: Optional[torch.Tensor] = None,
+                    scene_indices: Optional[torch.Tensor] = None,
+                    scene_opacities: Optional[torch.Tensor] = None,
+                    scene_visibility: Optional[torch.Tensor] = None,
+                    return_aux: bool = False):
+    """The tiled 2DGS render whatever ``cfg.render_mode_2d`` says (the JAX
+    package's ``surfel.render_2d_tiled``): :func:`render` in that mode."""
+    return render(splats, camera, cfg.replace(render_mode_2d=True),
+                  transforms, scene_indices, scene_opacities,
+                  scene_visibility, return_aux=return_aux)
 
 
 def render_batch(splats: SplatData, cameras: Camera, cfg: RenderConfig,

@@ -97,8 +97,6 @@ def test_render_batch_assembly_and_errors():
     assert torch.equal(outs["color"][1], torch.ones(H, W, 3))
     assert float(outs["alpha"][1].abs().max()) == 0.0
     before = (cr.launches, cr.bwd_launches)
-    with pytest.raises(NotImplementedError):
-        gt.render(s_t, cam_t, cfg.replace(render_mode_2d=True))
     with pytest.raises(ValueError):
         gt.render(s_t, cam_t, cfg.replace(backend="cuda"))
     s_t.means.requires_grad_(True)
