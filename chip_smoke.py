@@ -50,7 +50,16 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    must be exactly 0) with a profiler view; a few Adam steps of
    make_train_step in 2D at 2M and a small 2D fit whose loss must fall;
    the 2D render at a small size against the port's render_2d oracle on
-   the card and against the CPU, images and gradients.
+   the card and against the CPU, images and gradients;
+9. the tools: B5 (tools/kernel_bench.py, the compositor ablation bench)
+   launched 0 times by phases 3-8; every B5 variant against its plain
+   version on the render-mixed records, with its time, its plain
+   version's time and mean exit_k, and the `full` variant's bound; then
+   each tool's entry point with the counters zeroed just before and read
+   just after: kernel_bench.main() at its default size (2M, SH1, 1080p:
+   the ablation, then B1 and B2 alone), profile_stages.main() (same
+   scene), gpu_parity.main() (must return 0) and bench_configs' accept1-3
+   at full size (the reference-bytes runs at N_REF_BYTES splats).
 
 Prints a {"kernels": [...]} line, and last {"ok": true, "device": ...}.
 It has no CPU mode: without a CUDA device it exits 1.
@@ -143,6 +152,14 @@ SURF_OPS_BLEND_BASE = 5
 # the FMA of cg (2), w gcol (2) and its add (1).
 OPS_B4_GRAD_BASE = 72 + 12
 OPS_B4_GRAD_PER_CHANNEL = 5
+# float32 operations of B5's `full` variant per contributing visit: the
+# clamp, w = alpha excl T (2), excl *= 1 - alpha (2), and one FMA for each
+# of the three colours (2 each); per pixel and chunk: T = max(T excl, floor)
+OPS_B5_BLEND = 5 + 2 * 3
+OPS_B5_CHUNK = 2
+# Splats of bench_configs' reference-bytes runs here: the reference writer
+# is per-splat Python (host time, ~75 us a splat), so 1M would take minutes
+N_REF_BYTES = 200_000
 
 
 def log(*a):
@@ -1412,6 +1429,180 @@ def small_2d(gt, device):
             raise AssertionError(f"small 2D gradient {f} vs cpu")
 
 
+# --- the tools slice ---------------------------------------------------------
+
+def b5_work(cr, pairs, exit_k, cfg):
+    """What B5's `full` variant needs on these records: B1's tiers up to
+    the cut-offs on the visits before its exit, then per contributing visit
+    the clamp, w = alpha excl T, excl *= 1 - alpha and the three colour
+    FMAs, and per pixel and chunk T = max(T excl, floor)."""
+    counts, total = visit_counts(cr, pairs, exit_k, cfg)
+    p, t = cfg.tile_size ** 2, cfg.num_tiles
+    ops = (tier_ops(counts) + counts["contributing"] * OPS_B5_BLEND
+           + int(exit_k.long().sum()) * p * OPS_B5_CHUNK)
+    # records of the pairs composited, read once; starts, counts and ids;
+    # colors [T, P, 3], t [T, P] and exit_k written once
+    nbytes = (total * 11 * 4 + 3 * t * 4 + t * p * 3 * 4 + t * p * 4
+              + t * 4)
+    return counts, ops, nbytes
+
+
+def timed_once(fn):
+    """(fn(), its milliseconds on the card by CUDA events) for one call."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def check_b5_all(kb, cr, splats, cam, cfg):
+    """Every variant of B5 against its plain version on the render-mixed
+    records: colors and T by error mass, each normalised by the plain
+    version's max (p99.9 <= 1e-3, <= 0.1% over 1e-2), exit_k equal on >=
+    99% of tiles; each variant's time (CUDA events), its plain version's
+    time (one call) and its mean exit_k; `full`'s bound from the work its
+    data needs.  Launches made here are comparisons, not the path's."""
+    from gaussiansplats3d_tpu_torch.render.binning import bin_sort_records
+    from gaussiansplats3d_tpu_torch.render.projection import project_splats
+    with torch.no_grad():
+        pairs = bin_sort_records(project_splats(splats, cam, cfg), cfg)
+    ids = torch.arange(cfg.num_tiles, dtype=torch.int32,
+                       device=splats.device)
+    args = (pairs.records, pairs.tile_starts, pairs.tile_counts, ids, cfg)
+    variants = {}
+    for v in kb.VARIANTS:
+        colors, trans, exit_k = kb.variant_cuda(*args, v)
+        torch.cuda.synchronize()
+        ref, plain_ms = timed_once(
+            lambda: kb.composite_variant_torch(*args, v))
+        err = {}
+        for field, a, b in (("colors", colors, ref[0]),
+                            ("t", trans, ref[1])):
+            scale = max(float(b.abs().max()), 1e-30)
+            mx, p999, over = error_mass(a / scale, b / scale)
+            err[field] = {"max_abs": float((a - b).abs().max()),
+                          "max_norm": mx, "p999_norm": p999,
+                          "over_1e-2": over, "scale": scale}
+            if not (p999 <= BAR_P999["chans"] and over <= BAR_OVER):
+                raise AssertionError(f"B5 {v} disagrees with its plain "
+                                     f"version on {field}: {err[field]}")
+        agree = float((exit_k == ref[2]).double().mean())
+        if agree < BAR_EXIT_AGREE:
+            raise AssertionError(f"B5 {v} exit_k agrees on only {agree}")
+        ms = cuda_ms(lambda: kb.variant_cuda(*args, v), reps=10)
+        mean_exit = float(exit_k.double().mean())
+        variants[v] = {"ms": ms, "plain_ms": plain_ms,
+                       "mean_exit_k": mean_exit, "exit_k_agree": agree,
+                       "errors": err}
+        log(f"B5 {v:12s}: time {ms:.3f} ms  plain {plain_ms:.1f} ms  mean "
+            f"exit_k {mean_exit:.3f}  exit_k equal on {agree:.6f}; colors "
+            f"p99.9 {err['colors']['p999_norm']:.3e} (of max "
+            f"{err['colors']['scale']:.3e}), t p99.9 "
+            f"{err['t']['p999_norm']:.3e}")
+        if v == "full":
+            counts, ops, nbytes = b5_work(cr, pairs, exit_k, cfg)
+            bound = bound_of(ops, nbytes)
+    full = variants["full"]
+    for v in kb.VARIANTS:
+        variants[v]["share_of_full"] = variants[v]["ms"] / full["ms"]
+    log(f"B5 full: bound {bound[0]:.4f} ms by {bound[1]} (ops bound "
+        f"{bound[2]:.4f} ms: {ops} float32 operations; bytes bound "
+        f"{bound[3]:.4f} ms: {nbytes} bytes); pairs visited "
+        f"{counts['pairs']}, in box {counts['in_box']}, in cut-off "
+        f"{counts['in_cutoff']}, contributing {counts['contributing']}")
+    return {"name": "kernel_bench", "route": "cuda",
+            "source": "gaussiansplats3d_tpu_torch/csrc/kernel_bench.cu",
+            "replaces": "gaussiansplats3d_tpu/tools/kernel_bench.py:45",
+            "launches": None,
+            "max_abs_err": max(e["max_abs"] for r in variants.values()
+                               for e in r["errors"].values()),
+            "ms": full["ms"], "plain_ms": full["plain_ms"],
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            "variants": variants, "work": counts, "operations": ops,
+            "bytes": nbytes}
+
+
+def all_launches(cr, cs, kb):
+    """(B1, B2, B3, B4, B5) launch counts."""
+    return kernel_launches(cr, cs) + (kb.launches,)
+
+
+def tool_path(name, fn, cr, cs, kb):
+    """Drive one tool with every counter zeroed just before and read just
+    after; its standard output is logged.  Returns (fn's result, (B1..B5)
+    launches, seconds)."""
+    reset_all(cr, cs)
+    kb.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = fn()
+    secs = time.perf_counter() - t0
+    launches = all_launches(cr, cs, kb)
+    for line in buf.getvalue().strip().splitlines():
+        log(f"  {name}: {line}")
+    log(f"{name}: {secs:.1f} s; (B1, B2, B3, B4, B5) launches {launches}")
+    return result, launches, secs, buf.getvalue()
+
+
+def tools_slice(cr, cs, kb):
+    """The tools' entry points on the card, each with the counters zeroed
+    just before and read just after: kernel_bench (B5 on every variant,
+    then B1 and B2 alone), profile_stages (B1, B2), gpu_parity (B1-B4;
+    must return 0), bench_configs (accept1-3 at full size; the
+    reference-bytes runs at N_REF_BYTES)."""
+    from gaussiansplats3d_tpu_torch.tools import (bench_configs, gpu_parity,
+                                                  kernel_bench,
+                                                  profile_stages)
+    out = {}
+    rc, launches, secs, text = tool_path(
+        "kernel_bench", lambda: kernel_bench.main([]), cr, cs, kb)
+    for v in kb.VARIANTS:
+        if f"  {v} " not in text:
+            raise AssertionError(f"kernel_bench printed no line for {v}")
+    if rc != 0 or "REAL fwd" not in text or "REAL bwd" not in text:
+        raise AssertionError("kernel_bench did not run to its end")
+    if launches[4] == 0 or launches[0] == 0 or launches[1] == 0:
+        raise AssertionError(f"kernel_bench launched (B1..B5) {launches}")
+    out["kernel_bench"] = {"launches": launches, "seconds": secs,
+                           "lines": text.strip().splitlines()}
+
+    rc, launches, secs, text = tool_path(
+        "profile_stages", lambda: profile_stages.main([]), cr, cs, kb)
+    if rc != 0 or "Msplats/s" not in text:
+        raise AssertionError("profile_stages did not run to its end")
+    if launches[0] == 0 or launches[1] == 0 or launches[4] != 0:
+        raise AssertionError(f"profile_stages launched (B1..B5) {launches}")
+    out["profile_stages"] = {"launches": launches, "seconds": secs,
+                             "lines": text.strip().splitlines()}
+
+    rc, launches, secs, text = tool_path(
+        "gpu_parity", gpu_parity.main, cr, cs, kb)
+    if rc != 0 or "GPU kernel parity: OK" not in text:
+        raise AssertionError(f"gpu_parity returned {rc}")
+    if 0 in launches[:4] or launches[4] != 0:
+        raise AssertionError(f"gpu_parity launched (B1..B5) {launches}")
+    out["gpu_parity"] = {"launches": launches, "seconds": secs}
+
+    recs, launches, secs, text = tool_path(
+        "bench_configs", lambda: bench_configs.run_all(
+            ref_splats=N_REF_BYTES), cr, cs, kb)
+    names = [r["config"] for r in recs]
+    if not (recs[0]["oracle_ok"] and all(r.get("ok", True) for r in recs)
+            and names[:3] == ["accept1_oracle", "accept2_truck_shaped",
+                              "accept3_garden_shaped"]):
+        raise AssertionError(f"bench_configs: {recs}")
+    if launches[0] == 0 or launches[1] == 0 or launches[4] != 0:
+        raise AssertionError(f"bench_configs launched (B1..B5) {launches}")
+    out["bench_configs"] = {"launches": launches, "seconds": secs,
+                            "records": recs}
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1420,6 +1611,7 @@ def main():
     from gaussiansplats3d_tpu_torch import _build
     from gaussiansplats3d_tpu_torch.render import cuda_rasterize as cr
     from gaussiansplats3d_tpu_torch.render import cuda_surfel as cs
+    from gaussiansplats3d_tpu_torch.tools import kernel_bench as kb
 
     device = torch.device("cuda")
     toolchain(_build)
@@ -1469,7 +1661,23 @@ def main():
     b4["adam_steps"] = adam_steps(cs, splats, cam, cfg2d)
     b4["fit_2d_losses"] = fit_2d(gt, cs, device)
     small_2d(gt, device)
-    log(json.dumps({"kernels": [b1, b2, b3, b4]}))
+
+    # the tools slice: every render and train path above ran B5 0 times
+    if kb.launches != 0:
+        raise AssertionError(f"B5 launched {kb.launches} times on the "
+                             f"render and train paths")
+    b5 = check_b5_all(kb, cr, splats, cam, cfg)
+    tools = tools_slice(cr, cs, kb)
+    b5["launches"] = tools["kernel_bench"]["launches"][4]
+    b5["launches_by_path"] = {"render and train paths": 0,
+                              **{k: v["launches"][4]
+                                 for k, v in tools.items()}}
+    for i, entry in enumerate((b1, b2, b3, b4)):
+        entry["tool_launches"] = {k: v["launches"][i]
+                                  for k, v in tools.items()}
+    b5["tools_seconds"] = {k: v["seconds"] for k, v in tools.items()}
+    b5["bench_configs"] = tools["bench_configs"]["records"]
+    log(json.dumps({"kernels": [b1, b2, b3, b4, b5]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -66,6 +66,32 @@ class SplatData:
                 return deg
         raise ValueError(f"unsupported SH coefficient count {k}")
 
+    def with_sh_degree(self, degree: int) -> "SplatData":
+        """Truncate or zero-pad the SH bands to ``degree``."""
+        k_new = SH_DEGREE_TO_COEFF_COUNT[degree]
+        k_old = self.sh.shape[1]
+        if k_new == k_old:
+            return self
+        if k_new < k_old:
+            sh = self.sh[:, :k_new, :]
+        else:
+            pad = torch.zeros((self.sh.shape[0], k_new - k_old, 3),
+                              dtype=self.sh.dtype, device=self.sh.device)
+            sh = torch.cat([self.sh, pad], dim=1)
+        return dataclasses.replace(self, sh=sh)
+
+    @staticmethod
+    def zeros(n: int, sh_degree: int = 0, device="cuda") -> "SplatData":
+        k = SH_DEGREE_TO_COEFF_COUNT[sh_degree]
+        return SplatData(
+            means=torch.zeros((n, 3), device=device),
+            scales=torch.ones((n, 3), device=device),
+            quats=torch.tensor([0.0, 0.0, 0.0, 1.0],
+                               device=device).repeat(n, 1),
+            colors=torch.zeros((n, 4), device=device),
+            sh=torch.zeros((n, k, 3), device=device),
+        )
+
     @staticmethod
     def from_numpy(means, scales, quats, colors, sh,
                    device="cuda") -> "SplatData":

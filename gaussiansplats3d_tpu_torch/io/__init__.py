@@ -1,0 +1,30 @@
+"""Scene ingest / export: .ply, .splat, .ksplat, .spz readers and writers
+(counterpart of the JAX package's ``io/``).
+
+Decoding is host-side, vectorized NumPy (copies of the JAX package's numpy
+paths; the equivalent of the reference's streaming loaders in
+src/loaders/); every decoder builds numpy arrays and moves them to the
+device once, at the end, as the port's ``SplatData`` (``device`` defaults
+to ``cuda``, as every constructor of the port).  Writers take a
+``SplatData`` on any device.
+
+Not ported here: the native C++ fast path (``io/native.py``), URL fetch
+(``io/fetch.py``; a URL given to :func:`load` raises), progressive loading
+and ``optimize_splat_data``.
+"""
+
+from .formats import (  # noqa: F401
+    SceneFormat,
+    load,
+    parse,
+    save,
+    scene_format_from_path,
+)
+from .ksplat import (  # noqa: F401
+    load_ksplat,
+    save_ksplat,
+    serialize_ksplat_sections,
+)
+from .ply import load_ply, save_ply  # noqa: F401
+from .splat import load_splat, save_splat  # noqa: F401
+from .spz import load_spz, save_spz  # noqa: F401

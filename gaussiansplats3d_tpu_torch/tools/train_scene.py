@@ -1,20 +1,21 @@
 """End-to-end training CLI: fit splats to multi-view renders (the
 counterpart of the JAX package's ``tools/train_scene.py``).
 
-1. build a synthetic ground-truth scene,
+1. build a synthetic ground-truth scene (or load any supported file),
 2. render K orbit views of it as training targets,
 3. initialize a smaller random splat set,
 4. run the train step (``parallel.train``) with periodic densify/prune
    (``parallel.heuristics``), rebuilding the Adam moments after each,
-5. report loss / PSNR / splat-count curves.
+5. report loss / PSNR / splat-count curves and optionally save the fitted
+   scene as ``.ksplat``.
 
 Usage:
     python -m gaussiansplats3d_tpu_torch.tools.train_scene \\
-        [--views 8] [--iters 300] [--init 5000] [--width 256] \\
-        [--height 256] [--densify-every 100] [--cpu]
+        [--scene file.(ply|splat|ksplat|spz)] [--views 8] [--iters 300] \\
+        [--init 5000] [--width 256] [--height 256] [--densify-every 100] \\
+        [--save fitted.ksplat] [--cpu]
 
-Runs on the GPU unless ``--cpu`` is given.  ``--scene`` and ``--save``
-need the scene-file IO, which is not ported yet.
+Runs on the GPU unless ``--cpu`` is given.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ def orbit_cameras(k: int, radius: float, height: float, aspect: float,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default=None,
-                    help="ground-truth scene file (not ported yet)")
+                    help="ground-truth scene file (default: synthetic)")
     ap.add_argument("--views", type=int, default=8)
     ap.add_argument("--iters", type=int, default=300)
     ap.add_argument("--init", type=int, default=5000,
@@ -66,20 +67,19 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=5e-3)
     ap.add_argument("--densify-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=25)
-    ap.add_argument("--save", default=None,
-                    help="write fitted .ksplat (not ported yet)")
+    ap.add_argument("--save", default=None, help="write fitted .ksplat")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (plain PyTorch kernels)")
     args = ap.parse_args(argv)
 
-    if args.scene or args.save:
-        raise NotImplementedError(
-            "--scene/--save need the scene-file IO, which is not ported yet "
-            "(ROADMAP A.3)")
     device = torch.device("cpu" if args.cpu else "cuda")
     gen = torch.Generator(device=device)
-    truth = gt.random_splats(gen.manual_seed(0), 20000,
-                             sh_degree=args.sh_degree, device=device)
+    if args.scene:
+        truth = gt.load(args.scene, device=device).with_sh_degree(
+            args.sh_degree)
+    else:
+        truth = gt.random_splats(gen.manual_seed(0), 20000,
+                                 sh_degree=args.sh_degree, device=device)
     cfg = gt.RenderConfig(width=args.width, height=args.height,
                           sh_degree=args.sh_degree)
     cams = orbit_cameras(args.views, 2.6, 1.4, args.width / args.height,
@@ -135,6 +135,9 @@ def main(argv=None):
     img = render(state.params.to_splats(), cams[0])
     print(f"final psnr(view0): {float(psnr(img, targets[0])):.2f} dB  "
           f"ssim(view0): {float(ssim(img, targets[0])):.4f}", flush=True)
+    if args.save:
+        gt.save(state.params.to_splats(), args.save)
+        print(f"saved {args.save}", flush=True)
     return 0
 
 

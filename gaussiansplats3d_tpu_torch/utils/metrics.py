@@ -1,0 +1,106 @@
+"""Per-frame / per-step metrics and profiling hooks (counterpart of the JAX
+package's ``utils/metrics.py``).
+
+The reference surfaces live stats in its InfoPanel (FPS, rendered/total
+splat counts, last sort time — the reference's src/ui/InfoPanel.js,
+Viewer.js:1804-1822) and ad-hoc performance.now() spans around the sort
+(SortWorker.js:33-78).  The port's equivalents:
+
+- :class:`FrameStats` — one render/train step's numbers (wall ms,
+  splats, pairs, overflow, Msplats/s).
+- :class:`Timer` — wall-clock span that waits for the device at exit
+  (``torch.cuda.synchronize()`` when the tensor it was handed lives on a
+  CUDA device).
+- :func:`profile_trace` — context manager around ``torch.profiler`` that
+  writes a Chrome trace (chrome://tracing, Perfetto) into ``logdir``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import time
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass
+class FrameStats:
+    wall_ms: float = 0.0
+    num_splats: int = 0
+    num_pairs: int = 0
+    overflow: int = 0
+    width: int = 0
+    height: int = 0
+
+    @property
+    def msplats_per_s(self) -> float:
+        if self.wall_ms <= 0:
+            return 0.0
+        return self.num_splats / self.wall_ms / 1e3
+
+    def as_dict(self) -> dict:
+        return {**dataclasses.asdict(self),
+                "msplats_per_s": round(self.msplats_per_s, 3)}
+
+
+class Timer:
+    """Wall-clock span that waits for the device at exit.
+
+    >>> with Timer() as t:
+    ...     out = render(...)
+    ...     t.block_on(out["color"])
+    >>> t.ms
+    """
+
+    def __init__(self):
+        self.ms = 0.0
+        self._out = None
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def block_on(self, x):
+        self._out = x
+        return x
+
+    def __exit__(self, *exc):
+        if isinstance(self._out, torch.Tensor) and self._out.is_cuda:
+            torch.cuda.synchronize(self._out.device)
+        self.ms = (time.perf_counter() - self._t0) * 1e3
+        return False
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str, with_memory: bool = False):
+    """Capture a torch.profiler trace of the CPU and, where there is one,
+    the CUDA device; writes ``logdir/trace.json`` (Chrome trace format)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=acts, profile_memory=with_memory) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def timed_render(render_fn, *args, block_key: Optional[str] = "color",
+                 **kwargs):
+    """Run a render callable and return (output, FrameStats)."""
+    with Timer() as t:
+        out = render_fn(*args, **kwargs)
+        t.block_on(out[block_key] if block_key else out)
+    stats = FrameStats(wall_ms=t.ms)
+    if isinstance(out, dict):
+        if "num_pairs" in out:
+            stats.num_pairs = int(out["num_pairs"])
+        if "overflow" in out:
+            stats.overflow = int(out["overflow"])
+        col = out.get("color")
+        if col is not None:
+            stats.height, stats.width = col.shape[:2]
+    return out, stats

@@ -202,13 +202,20 @@ def test_fit_psnr_gate():
     assert p >= 25.0, f"fit PSNR {p:.2f} dB < 25 dB"
 
 
-def test_train_scene_cli_runs_on_cpu(capsys):
+def test_train_scene_cli_runs_on_cpu(capsys, tmp_path):
+    fit = str(tmp_path / "fit.ksplat")
     assert train_scene.main(["--cpu", "--views", "2", "--iters", "4",
                              "--init", "200", "--width", "32", "--height",
                              "32", "--densify-every", "2",
-                             "--log-every", "2"]) == 0
+                             "--log-every", "2", "--save", fit]) == 0
     out = capsys.readouterr().out
     assert "on cpu" in out and "final psnr(view0)" in out
-    for flag in (["--scene", "x.ply"], ["--save", "x.ksplat"]):
-        with pytest.raises(NotImplementedError, match="IO"):
-            train_scene.main(["--cpu", *flag])
+    assert f"saved {fit}" in out
+    # the saved fit is a scene the CLI can start from
+    assert train_scene.main(["--cpu", "--views", "2", "--iters", "1",
+                             "--init", "100", "--width", "32", "--height",
+                             "32", "--densify-every", "0",
+                             "--scene", fit]) == 0
+    assert "of 200 ground-truth splats" in capsys.readouterr().out
+    with pytest.raises(FileNotFoundError):
+        train_scene.main(["--cpu", "--scene", str(tmp_path / "none.ply")])
