@@ -14,7 +14,9 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    shapes the main paths give it (the port's own binning of the main-path
    scene, in each configuration of phases 3 and 5), by error mass; then
    each one's time (CUDA events), its plain version's time and its bound,
-   from the work this run's data needs.  B2's cotangent is that of
+   from the work this run's data needs, and for B2 and B4 how many of the
+   pair-warp visits their per-warp cull keeps (its plain mirror,
+   cuda_rasterize.kept_pair_warps).  B2's cotangent is that of
    mean(color^2) at B1's chans;
 3. the serving path: render() of 2M random splats (seeded, the JAX
    package's bench.py scene), SH degree 1, 1920x1080, tile 32, sort_bits
@@ -306,6 +308,25 @@ def b1_work(cr, pairs, exit_k, cfg):
     return counts, ops, nbytes
 
 
+def cull_counts(recs, rows, chunk, starts, counts, exit_k, cfg):
+    """The pair-warp visits a backward compositor's per-warp cull leaves
+    (cuda_rasterize.kept_pair_warps, the plain mirror of warp_cull.cuh):
+    every pair replayed (chunks < exit_k) against every warp of its tile,
+    and how many of those the cull keeps.  ``rows``: the records' centre x,
+    y and box rx, ry rows."""
+    from gaussiansplats3d_tpu_torch.render import cuda_rasterize as cr
+    tile, slot, total = visited_slots(chunk, starts, counts, exit_k, cfg)
+    warps = cr.warp_rects(cfg).shape[0]
+    kept = 0
+    for i in range(0, total, WORK_PAIRS_PER_STEP):
+        sl = slot[i:i + WORK_PAIRS_PER_STEP]
+        x, y, rx, ry = (recs[r][sl] for r in rows)
+        kept += int(cr.kept_pair_warps(x, y, rx, ry,
+                                       tile[i:i + WORK_PAIRS_PER_STEP],
+                                       cfg).sum())
+    return {"pair_warps": total * warps, "kept_pair_warps": kept}
+
+
 def b2_work(cr, pairs, exit_k, cfg):
     """What B2's function needs on these records: the same visits as B1,
     walked twice (the chunk sum's recompute and the sweep), and the
@@ -321,6 +342,9 @@ def b2_work(cr, pairs, exit_k, cfg):
     # counts, ids and exit_k; the [NC + 8, S] gradient written once
     nbytes = (total * (nc + 8) * 4 + t * (nc + 1) * p * 4 + t * p * 4
               + 4 * t * 4 + pairs.records.numel() * 4)
+    counts.update(cull_counts(pairs.records, (0, 1, nc + 6, nc + 7),
+                              cr.CHUNK, pairs.tile_starts, pairs.tile_counts,
+                              exit_k, cfg))
     return counts, ops, nbytes
 
 
@@ -483,7 +507,9 @@ def check_b2(cr, splats, cam, name, cfg):
         f" bytes); pairs replayed {counts['pairs']}, visits replayed "
         f"{counts['visits']}, in box "
         f"{counts['in_box']}, in cut-off {counts['in_cutoff']}, "
-        f"contributing {counts['contributing']}; chunks replayed "
+        f"contributing {counts['contributing']}; pair-warp visits "
+        f"{counts['pair_warps']}, kept by the cull "
+        f"{counts['kept_pair_warps']}; chunks replayed "
         f"{int(exit_k.long().sum())}")
     return {"max_abs_err": max(r["max_abs"] for r in rows), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1090,6 +1116,8 @@ def b4_work(cs, args, exit_k, cfg):
     # counts, ids and exit_k; the [NC + 14, S] gradient written once
     nbytes = (total * (nc + 14) * 4 + t * p * nc * 4 + 2 * t * p * 4
               + 4 * t * 4 + args[0].numel() * 4)
+    counts.update(cull_counts(args[0], (9, 10, nc + 12, nc + 13),
+                              cs.CHUNK, args[1], args[2], exit_k, cfg))
     return counts, ops, nbytes
 
 
@@ -1178,7 +1206,9 @@ def check_b4(cs, splats, cam, name, cfg):
         f" bytes); pairs replayed {counts['pairs']}, visits replayed "
         f"{counts['visits']}, in box "
         f"{counts['in_box']}, past the cuts {counts['past_cuts']}, "
-        f"contributing {counts['contributing']}; chunks replayed "
+        f"contributing {counts['contributing']}; pair-warp visits "
+        f"{counts['pair_warps']}, kept by the cull "
+        f"{counts['kept_pair_warps']}; chunks replayed "
         f"{int(exit_k.long().sum())}")
     return {"max_abs_err": max(r["max_abs"] for r in rows), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,

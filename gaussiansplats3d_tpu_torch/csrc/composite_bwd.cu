@@ -5,21 +5,36 @@
 // _bwd_one_tile).  The Python side, its checks and its plain PyTorch
 // version (composite_bwd_torch) live in render/cuda_rasterize.py.
 //
-// One block per tile, one thread per pixel (P = tile_size^2 <= 1024, a
-// multiple of 32), as B1 (composite_fwd.cu).  The tile's chunks are
-// replayed in reverse, from exit_k - 1 down to 0: chunks at or past exit_k
-// never ran forward and contribute nothing.  For each chunk:
+// One block per tile (P = tile_size^2 <= 1024, a multiple of 32) of up to
+// 512 threads, each holding 2 pixels: a warp holds an 8 x 8 patch of the
+// tile, lane l the pixels (l % 8, l / 8) and (l % 8, l / 8 + 4) of it
+// (warp_cull::pixel), so a pair's box covers few warps and many of their
+// lanes.  The tile's chunks are replayed in reverse, from exit_k - 1 down
+// to 0: chunks at or past exit_k never ran forward and contribute
+// nothing.  For each chunk:
 //
-// 1. the chunk's 128 records are staged in shared memory;
-// 2. every thread recomputes the chunk's log-transmittance sum chunk_log
-//    with B1's own loop (same order, same tests, expf, log1pf, fminf), so
+// 1. the chunk's 128 records are staged in shared memory, and each warp
+//    culls them against the rectangle of its pixels (warp_cull.cuh): a
+//    128-bit mask of the pairs that may pass the box test at one of its
+//    pixels.  Both passes below walk the mask's set bits only;
+// 2. T at each pixel comes from B1's residual logt_after.  Where the
+//    chunk's sum chunk_log of log(1 - alpha) is at least cs_floor, B1 set
+//    logt_after = logt_before + chunk_log, so T_i = exp(logt_after -
+//    rest_i), rest_i the sum over the pairs from i on, and the sweep's own
+//    sum rebuilds logt_before.  Only where T fell below exp(cs_floor) in
+//    the chunk is chunk_log clamped, and then logt_after <= cs_floor: a
+//    warp with such a pixel (logt_after <= cs_floor + 1) first replays
+//    B1's loop over the kept pairs in ascending order (the expression is
+//    composite_fwd.cu's, textually).  The pairs the cull drops are ones B1
+//    skipped at these pixels, so that is B1's sequence of adds, and
 //    logt_before = logt_after - max(chunk_log, cs_floor) undoes B1's
 //    per-chunk accumulation;
-// 3. every thread sweeps the chunk backwards.  For pair i at its pixel,
-//    with excl_i = chunk_log - (sum of log(1 - alpha_j), j >= i):
-//      T_i     = exp(excl_i + logt_before)   (log space: never divide by
-//                                             1 - alpha, which amplifies
-//                                             rounding 1000x at 0.999)
+// 3. the kept pairs are swept in descending order.  For pair i at a
+//    pixel:
+//      T_i     = exp(logt_before + chunk_log - rest_i)  (log space: never
+//                                             divide by 1 - alpha, which
+//                                             amplifies rounding 1000x at
+//                                             0.999)
 //      w       = alpha T_i,  cg = sum_c chan_c gchan_c + galpha
 //      suffix  = sum of w_j cg_j over the pairs behind i (this chunk and
 //                every later one)
@@ -29,21 +44,22 @@
 //      d_mean  = -2 d_quad (a dx + b dy, b dx + c dy)
 //      d_conic = d_quad (dx^2, 2 dx dy, dy^2)
 //      d_chan  = w gchan,  d_opa = d_alpha exp(-g/2) (opa > 0)
-// 4. each of those NC + 6 terms is summed over the tile's pixels: over the
-//    warp by shuffles, then across warps by shared-memory adds into
-//    sacc[NC + 6][128].  A warp in which no pixel passes the pair's
-//    cut-offs (box, g <= 8, min_alpha) skips the pair's reduction: its
-//    terms are all 0 (__any_sync).
+// 4. a thread sums the NC + 6 terms over its pixels; a warp in which no
+//    pixel passes the pair's cut-offs (box, g <= 8, min_alpha) skips the
+//    pair; else the warp sums the terms at once with one reduce-scatter
+//    (warp_cull::reduce_add) and its lanes add the totals into
+//    sacc[NC + 6][128] in shared memory, one term a lane;
 // 5. the window's slots of sacc are written to grad.  A slot lies in
 //    exactly one tile's window, so the writes are exclusive: no global
 //    atomics and no read-modify-write of chunks shared by two tiles (the
 //    Pallas kernel's boundary-chunk RMW is a TPU mechanism).  The wrapper
 //    zero-fills grad; rx, ry and slots outside the windows stay 0.
 //
-// What bounds it on the H100: as B1, the pair-pixel evaluations (twice: the
-// chunk_log recompute and the sweep), plus the reductions of the pairs
-// that pass the cut-offs; records are read once per chunk.  Arithmetic, not
-// memory.  Making it fast is later work.
+// What bounds it on the H100: arithmetic, not memory (records are read
+// once per chunk): the cut-off tests and exp/log1p of the visits in the
+// box, and the reductions of the pairs some pixel of a warp passes.  The
+// cull leaves the box tests of the pairs whose box reaches the warp's
+// patch; the replay runs only where T dies.
 //
 // Records are field-major [NC + 8, S] float32: x, y, conic a, b, c, the NC
 // channels, opacity, rx, ry.  logt [T, P], exit_k [T] int32 are B1's
@@ -52,22 +68,22 @@
 
 #include <cuda_runtime.h>
 
+#include "warp_cull.cuh"
+
 namespace {
 
-constexpr int kChunk = 128;
+using warp_cull::kAccStride;
+using warp_cull::kChunk;
+using warp_cull::kFull;
+
 constexpr float kGaussianCutoff = 8.0f;
 constexpr float kAlphaClamp = 0.999f;
+using warp_cull::kPix;                      // pixels a thread
+constexpr int kThreads = 32 * 32 / kPix;   // enough for a 32 x 32 tile
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
+// 2 blocks an SM: 64 registers a thread (PERF.md has ptxas's report)
 template <int NC>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kThreads, 2)
 composite_bwd_kernel(const float* __restrict__ rec, long long s_total,
                      const int* __restrict__ starts,
                      const int* __restrict__ counts,
@@ -80,122 +96,185 @@ composite_bwd_kernel(const float* __restrict__ rec, long long s_total,
   constexpr int kFields = NC + 8;
   constexpr int kTerms = NC + 6;  // x, y, a, b, c, NC channels, opacity
   __shared__ float srec[kFields][kChunk];
-  __shared__ float sacc[kTerms][kChunk];
+  __shared__ float sacc[kTerms][kAccStride];
 
   const int tile = blockIdx.x;
-  const int pix = threadIdx.x;
-  const int npix = blockDim.x;
-  const int lane = pix & 31;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int npix = ts * ts;
   const int start = starts[tile];
   const int count = counts[tile];
   const int id = ids[tile];
   const int start_chunk = start / kChunk;
-  const float px = static_cast<float>(id % tiles_x) * static_cast<float>(ts)
-                   + static_cast<float>(pix % ts) + 0.5f;
-  const float py = static_cast<float>(id / tiles_x) * static_cast<float>(ts)
-                   + static_cast<float>(pix / ts) + 0.5f;
+  const float tx = static_cast<float>(id % tiles_x) * static_cast<float>(ts);
+  const float ty = static_cast<float>(id / tiles_x) * static_cast<float>(ts);
+  const int warp = tid >> 5;
+  const warp_cull::Rect rect = warp_cull::rect(tx, ty, ts, warp);
+  // the term whose warp total the reduce-scatter leaves on this lane
+  const int term_of_lane = warp_cull::reduced_term<kTerms>(lane);
 
-  const long long p = npix;
-  float gch[NC + 1];
+  bool has[kPix];
+  float px[kPix], py[kPix], lt_after[kPix];
+  float sg[kPix];  // sum of w cg over every pair behind the current one
+  float gch[kPix][NC + 1];
 #pragma unroll
-  for (int c = 0; c <= NC; ++c) {
-    gch[c] = gchans[(static_cast<long long>(tile) * (NC + 1) + c) * p + pix];
+  for (int q = 0; q < kPix; ++q) {
+    int ix, iy;
+    warp_cull::pixel(ts, warp, q, lane, ix, iy);
+    has[q] = warp_cull::inside(ts, ix, iy);
+    const int pp = has[q] ? iy * ts + ix : 0;
+    // GL pixel centre, as B1 computes it
+    px[q] = tx + static_cast<float>(ix) + 0.5f;
+    py[q] = ty + static_cast<float>(iy) + 0.5f;
+#pragma unroll
+    for (int c = 0; c <= NC; ++c) {
+      gch[q][c] = has[q]
+          ? gchans[(static_cast<long long>(tile) * (NC + 1) + c) * npix + pp]
+          : 0.0f;
+    }
+    lt_after[q] = has[q] ? logt[static_cast<long long>(tile) * npix + pp]
+                         : 0.0f;
+    sg[q] = 0.0f;
   }
-  float lt_after = logt[static_cast<long long>(tile) * p + pix];
-  float sg = 0.0f;  // sum of w cg over every pair behind the current one
 
   for (int k = exit_k[tile] - 1; k >= 0; --k) {
     const long long base = static_cast<long long>(start_chunk + k) * kChunk;
     __syncthreads();  // the previous chunk's records and sums are consumed
-    for (int i = pix; i < kFields * kChunk; i += npix) {
+    for (int i = tid; i < kFields * kChunk; i += nthreads) {
       const int f = i / kChunk;
       const int l = i - f * kChunk;
       const long long slot = base + l;
       srec[f][l] = slot < s_total ? rec[f * s_total + slot] : 0.0f;
     }
-    for (int i = pix; i < kTerms * kChunk; i += npix) {
+    for (int i = tid; i < kTerms * kChunk; i += nthreads) {
       sacc[i / kChunk][i % kChunk] = 0.0f;
     }
     __syncthreads();
     const int lo = max(static_cast<int>(start - base), 0);
     const int hi = min(static_cast<int>(start + count - base), kChunk);
+    const warp_cull::Mask kept = warp_cull::cull(
+        srec[0], srec[1], srec[NC + 6], srec[NC + 7], lo, hi, rect, lane);
 
-    // B1's loop, verbatim: the same chunk_log bits.
-    float chunk_log = 0.0f;
-    for (int l = lo; l < hi; ++l) {
-      const float dx = px - srec[0][l];
-      const float dy = py - srec[1][l];
-      if (fabsf(dx) > srec[NC + 6][l] || fabsf(dy) > srec[NC + 7][l]) continue;
-      const float g = srec[2][l] * dx * dx + 2.0f * srec[3][l] * dx * dy
-                      + srec[4][l] * dy * dy;
-      if (g > kGaussianCutoff) continue;
-      float alpha = srec[NC + 5][l] * expf(-0.5f * g);
-      if (!(alpha >= min_alpha)) continue;
-      alpha = fminf(alpha, kAlphaClamp);
-      chunk_log += log1pf(-alpha);
+    // T before the pair being swept is exp(t_base - rest).  Where B1's
+    // chunk sum is at least cs_floor, logt_before = logt_after - sum, so
+    // t_base = logt_after and the sum need not be known before the sweep:
+    // the sweep's own sum rebuilds logt_before after it.  Only a chunk in
+    // which T falls below exp(cs_floor) has a sum under the floor, and
+    // then logt_after <= cs_floor (logt_after = logt_before + max(sum,
+    // cs_floor), logt_before <= 0; the margin of 1 covers the rounding of
+    // the rebuilt logt_after).  A warp with such a pixel replays B1's loop
+    // over the kept pairs, in ascending order, for every pixel: the pairs
+    // the cull drops are ones B1 skipped at these pixels, so chunk_log is
+    // B1's sequence of adds, its bits.
+    bool dying = false;
+#pragma unroll
+    for (int q = 0; q < kPix; ++q) {
+      dying |= has[q] && !(lt_after[q] > cs_floor + 1.0f);
     }
-    const float lt_before = lt_after - fmaxf(chunk_log, cs_floor);
-
-    // Reverse sweep.  Every lane runs every iteration (no early continue)
-    // so the warp collectives below see the whole warp.
-    float rest = 0.0f;  // sum of log(1 - alpha_j) for j >= l in the chunk
-    for (int l = hi - 1; l >= lo; --l) {
-      const float dx = px - srec[0][l];
-      const float dy = py - srec[1][l];
-      const float ca = srec[2][l], cb = srec[3][l], cc = srec[4][l];
-      const float opa = srec[NC + 5][l];
-      bool valid = fabsf(dx) <= srec[NC + 6][l] && fabsf(dy) <= srec[NC + 7][l];
-      float g = 0.0f, e = 0.0f, alpha = 0.0f;
-      if (valid) {
-        g = ca * dx * dx + 2.0f * cb * dx * dy + cc * dy * dy;
-        valid = g <= kGaussianCutoff;
-      }
-      if (valid) {
-        e = expf(-0.5f * g);
-        alpha = opa * e;
-        valid = alpha >= min_alpha;
-      }
-      if (!__any_sync(0xffffffffu, valid)) continue;  // warp-uniform
-
-      float t[kTerms];
+    const bool replay = __any_sync(kFull, dying);
+    float t_base[kPix], lt_before[kPix], rest[kPix];
 #pragma unroll
-      for (int f = 0; f < kTerms; ++f) t[f] = 0.0f;
-      if (valid) {
-        alpha = fminf(alpha, kAlphaClamp);
-        rest += log1pf(-alpha);
-        const float t_i = expf(chunk_log - rest + lt_before);
-        const float w = alpha * t_i;
-        float cg = gch[NC];
+    for (int q = 0; q < kPix; ++q) {
+      t_base[q] = lt_after[q];
+      lt_before[q] = rest[q] = 0.0f;
+    }
+    if (replay) {
+      float chunk_log[kPix];
 #pragma unroll
-        for (int c = 0; c < NC; ++c) cg += srec[5 + c][l] * gch[c];
-        float d_alpha = 0.0f;
-        if (alpha > 0.0f && alpha < kAlphaClamp) {
-          d_alpha = t_i * cg - sg / fmaxf(1.0f - alpha, 1e-6f);
+      for (int q = 0; q < kPix; ++q) chunk_log[q] = 0.0f;
+#pragma unroll 1
+      for (int j = 0; j < warp_cull::kWords; ++j) {
+        for (unsigned bits = warp_cull::word(kept, j); bits != 0;) {
+          const int l = j * 32 + warp_cull::pop_lowest(bits);
+#pragma unroll
+          for (int q = 0; q < kPix; ++q) {
+            const float dx = px[q] - srec[0][l];
+            const float dy = py[q] - srec[1][l];
+            if (fabsf(dx) > srec[NC + 6][l] || fabsf(dy) > srec[NC + 7][l]) {
+              continue;
+            }
+            const float g = srec[2][l] * dx * dx + 2.0f * srec[3][l] * dx * dy
+                            + srec[4][l] * dy * dy;
+            if (g > kGaussianCutoff) continue;
+            float alpha = srec[NC + 5][l] * expf(-0.5f * g);
+            if (!(alpha >= min_alpha)) continue;
+            alpha = fminf(alpha, kAlphaClamp);
+            chunk_log[q] += log1pf(-alpha);
+          }
         }
-        sg += w * cg;
-        const float d_quad = d_alpha * (-0.5f * alpha);
-        t[0] = d_quad * -2.0f * (ca * dx + cb * dy);
-        t[1] = d_quad * -2.0f * (cb * dx + cc * dy);
-        t[2] = d_quad * dx * dx;
-        t[3] = d_quad * 2.0f * dx * dy;
-        t[4] = d_quad * dy * dy;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) t[5 + c] = w * gch[c];
-        t[5 + NC] = opa > 0.0f ? d_alpha * e : 0.0f;
       }
 #pragma unroll
-      for (int f = 0; f < kTerms; ++f) {
-        const float v = warp_sum(t[f]);
-        if (lane == 0 && v != 0.0f) atomicAdd(&sacc[f][l], v);
+      for (int q = 0; q < kPix; ++q) {
+        lt_before[q] = lt_after[q] - fmaxf(chunk_log[q], cs_floor);
+        t_base[q] = chunk_log[q] + lt_before[q];
       }
+    }
+
+    // Reverse sweep over the kept pairs.  Every lane runs every step (the
+    // mask is the warp's), so the warp collectives see the whole warp.
+#pragma unroll 1
+    for (int j = warp_cull::kWords - 1; j >= 0; --j) {
+      for (unsigned bits = warp_cull::word(kept, j); bits != 0;) {
+        const int l = j * 32 + warp_cull::pop_highest(bits);
+        const float ca = srec[2][l], cb = srec[3][l], cc = srec[4][l];
+        const float opa = srec[NC + 5][l];
+        float t[kTerms];
+#pragma unroll
+        for (int f = 0; f < kTerms; ++f) t[f] = 0.0f;
+        bool any = false;
+#pragma unroll
+        for (int q = 0; q < kPix; ++q) {
+          const float dx = px[q] - srec[0][l];
+          const float dy = py[q] - srec[1][l];
+          if (!has[q] || fabsf(dx) > srec[NC + 6][l] ||
+              fabsf(dy) > srec[NC + 7][l]) {
+            continue;
+          }
+          const float g = ca * dx * dx + 2.0f * cb * dx * dy + cc * dy * dy;
+          if (g > kGaussianCutoff) continue;
+          const float e = expf(-0.5f * g);
+          float alpha = opa * e;
+          if (!(alpha >= min_alpha)) continue;
+          any = true;
+          alpha = fminf(alpha, kAlphaClamp);
+          rest[q] += log1pf(-alpha);
+          const float t_i = expf(t_base[q] - rest[q]);
+          const float w = alpha * t_i;
+          float cg = gch[q][NC];
+#pragma unroll
+          for (int c = 0; c < NC; ++c) cg += srec[5 + c][l] * gch[q][c];
+          float d_alpha = 0.0f;
+          if (alpha > 0.0f && alpha < kAlphaClamp) {
+            d_alpha = t_i * cg - sg[q] / fmaxf(1.0f - alpha, 1e-6f);
+          }
+          sg[q] += w * cg;
+          const float d_quad = d_alpha * (-0.5f * alpha);
+          t[0] += d_quad * -2.0f * (ca * dx + cb * dy);
+          t[1] += d_quad * -2.0f * (cb * dx + cc * dy);
+          t[2] += d_quad * dx * dx;
+          t[3] += d_quad * 2.0f * dx * dy;
+          t[4] += d_quad * dy * dy;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) t[5 + c] += w * gch[q][c];
+          t[5 + NC] += opa > 0.0f ? d_alpha * e : 0.0f;
+        }
+        if (!__any_sync(kFull, any)) continue;  // warp-uniform
+        warp_cull::reduce_add(t, lane, term_of_lane, &sacc[0][0], l);
+      }
+    }
+    if (!replay) {
+#pragma unroll
+      for (int q = 0; q < kPix; ++q) lt_before[q] = lt_after[q] - rest[q];
     }
     __syncthreads();
-    for (int i = pix; i < kTerms * kChunk; i += npix) {
+    for (int i = tid; i < kTerms * kChunk; i += nthreads) {
       const int f = i / kChunk;
       const int l = i - f * kChunk;
       if (l >= lo && l < hi) grad[f * s_total + base + l] = sacc[f][l];
     }
-    lt_after = lt_before;
+#pragma unroll
+    for (int q = 0; q < kPix; ++q) lt_after[q] = lt_before[q];
   }
 }
 
@@ -203,7 +282,7 @@ composite_bwd_kernel(const float* __restrict__ rec, long long s_total,
 
 // Launches B2 on `stream` over num_tiles tiles and returns
 // cudaGetLastError() (0 when the launch was accepted).  grad must be
-// zero-filled by the caller.
+// zero-filled by the caller; ts * ts must be a multiple of 32.
 extern "C" int composite_bwd(const float* rec, long long s_total, int nc,
                              const int* starts, const int* counts,
                              const int* ids, const float* logt,
@@ -211,9 +290,13 @@ extern "C" int composite_bwd(const float* rec, long long s_total, int nc,
                              int num_tiles, int ts, int tiles_x,
                              float min_alpha, float cs_floor, float* grad,
                              void* stream) {
+  const int npix = ts * ts;
+  if (npix % 32 != 0 || warp_cull::warps(ts) * 32 > kThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (num_tiles > 0) {
     const dim3 grid(num_tiles);
-    const dim3 block(ts * ts);
+    const dim3 block(warp_cull::warps(ts) * 32);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (nc == 3) {
       composite_bwd_kernel<3><<<grid, block, 0, s>>>(

@@ -6,21 +6,27 @@
 // fragment chain is torch.autograd's) live in render/cuda_surfel.py.
 //
 // B2 (composite_bwd.cu) with the surfel fragment and its hand-derived
-// transpose.  One block per tile of kThreads = 256 threads (fewer for tiles
-// under 256 pixels, rounded up to whole warps), each thread holding up to
-// kMaxPix = 4 pixels, tid + q * blockDim: the transpose keeps about twice
-// B2's live values, more than the 64 registers a thread 1,024 threads
-// could have.  The tile's chunks are replayed in reverse, exit_k - 1 down
-// to 0; for each chunk:
+// transpose.  One block per tile of up to 512 threads, each holding 2
+// pixels, laid out as B2's: a warp holds an 8 x 8 patch of the tile
+// (warp_cull::pixel); the block has as many warps as the tile needs, and
+// the pixels past the tile's edge are masked (has[q]).  The tile's chunks
+// are replayed in reverse, exit_k - 1 down to 0; for each chunk:
 //
-// 1. the chunk's 128 records are staged in shared memory;
-// 2. for each of its pixels a thread recomputes the chunk's log-
-//    transmittance sum with B3's loop (same order, surfel::fragment,
-//    log1pf), so logt_before = logt_after - max(chunk_log, cs_floor)
-//    undoes B3's accumulation bit for bit;
-// 3. the pairs are swept backwards.  For pair i at a pixel, with
-//    excl_i = chunk_log - (sum of log(1 - alpha_j), j >= i):
-//      T_i     = exp(excl_i + logt_before),  w = alpha T_i
+// 1. the chunk's 128 records are staged in shared memory, and each warp
+//    culls them against the rectangle of its pixels (warp_cull.cuh): both
+//    passes below walk the kept pairs only;
+// 2. T at each pixel comes from B3's residual logt_after as in B2: where
+//    the chunk's sum of log(1 - alpha) is at least cs_floor, T_i =
+//    exp(logt_after - rest_i) (rest_i the sum over the pairs from i on)
+//    and the sweep's own sum rebuilds logt_before.  A warp with a pixel
+//    whose T may have fallen below exp(cs_floor) in the chunk (logt_after
+//    <= cs_floor + 1) first replays B3's arithmetic (surfel::fragment,
+//    log1pf) over the kept pairs in ascending order, for each pixel: the
+//    pairs the cull drops are ones B3 skipped at these pixels, so
+//    logt_before = logt_after - max(chunk_log, cs_floor) undoes B3's
+//    accumulation bit for bit there;
+// 3. the kept pairs are swept backwards.  For pair i at a pixel:
+//      T_i     = exp(logt_before + chunk_log - rest_i),  w = alpha T_i
 //      cg      = sum_c chan_c gcol_c
 //      S       = sum of w_j cg_j over the pairs behind i
 //      d_alpha = T_i cg - S / (1 - alpha) - glogt / (1 - alpha)  (1 - alpha
@@ -32,18 +38,21 @@
 //             -(su d_su + sv d_sv)) / p.z;  d_k = l x d_p, d_l = d_p x k
 //      t_i0 = -d_k_i, t_i1 = -d_l_i, t_i2 = px d_k_i + py d_l_i (T row i),
 //      center = -(d_dx, d_dy), chan_c = w gcol_c, opacity = d_opa;
-// 4. each pair's NC + 12 terms are summed over the thread's pixels, over
-//    the warp by shuffles, then across warps by shared-memory adds into
-//    sacc[NC + 12][128]; a warp in which no pixel passes the pair's culls
-//    skips the pair (__any_sync);
+// 4. a thread sums each pair's NC + 12 terms over its pixels; a warp in
+//    which no pixel passes the pair's culls skips the pair (a ballot);
+//    else the warp sums all the terms at once with one reduce-scatter
+//    (warp_cull::reduce_add) and its lanes add the totals into
+//    sacc[NC + 12][128] in shared memory, one term a lane;
 // 5. the window's slots of sacc are written to grad: a slot lies in one
 //    tile's window only, so the writes are exclusive (no global atomics).
 //    The wrapper zero-fills grad; rx, ry and slots outside the windows or
 //    past exit_k stay 0.
 //
-// What bounds it on the H100: as B3, the pair-pixel visits (twice: the
-// chunk sum's recompute and the sweep), plus the transpose and reductions
-// of the visits that pass the culls; arithmetic, not memory.
+// What bounds it on the H100: arithmetic, not memory.  The fragment and
+// its transpose at the visits that pass the culls, and the reductions of
+// the pairs some pixel of a warp passes; the cull leaves the box tests of
+// the pairs whose box reaches the warp's patch, and the replay runs only
+// where T dies.
 //
 // Inputs: records [NC + 14, S] (surfel_fragment.cuh), B3's residuals logt
 // [T, P] and exit_k [T], the cotangents gcol [T, P, NC] and glogt [T, P].
@@ -52,24 +61,20 @@
 #include <cuda_runtime.h>
 
 #include "surfel_fragment.cuh"
+#include "warp_cull.cuh"
 
 namespace {
 
 using surfel::kChunk;
+using warp_cull::kAccStride;
+using warp_cull::kFull;
 
-constexpr int kThreads = 256;
-constexpr int kMaxPix = 4;       // pixels a thread: 1024 / kThreads
+constexpr int kMaxPix = warp_cull::kPix;   // pixels a thread
+constexpr int kThreads = 32 * 32 / kMaxPix;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    v += __shfl_down_sync(0xffffffffu, v, off);
-  }
-  return v;
-}
-
+// 2 blocks an SM: 64 registers a thread (PERF.md has ptxas's report)
 template <int NC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 surfel_bwd_kernel(const float* __restrict__ rec, long long s_total,
                   const int* __restrict__ starts,
                   const int* __restrict__ counts,
@@ -83,7 +88,7 @@ surfel_bwd_kernel(const float* __restrict__ rec, long long s_total,
   constexpr int kFields = NC + 14;
   constexpr int kTerms = NC + 12;  // T (9), center (2), NC channels, opacity
   __shared__ float srec[kFields][kChunk];
-  __shared__ float sacc[kTerms][kChunk];
+  __shared__ float sacc[kTerms][kAccStride];
 
   const int tile = blockIdx.x;
   const int tid = threadIdx.x;
@@ -96,6 +101,8 @@ surfel_bwd_kernel(const float* __restrict__ rec, long long s_total,
   const int start_chunk = start / kChunk;
   const float x0 = static_cast<float>(id % tiles_x) * static_cast<float>(ts);
   const float y0 = static_cast<float>(id / tiles_x) * static_cast<float>(ts);
+  const int warp = tid >> 5;
+  const warp_cull::Rect rect = warp_cull::rect(x0, y0, ts, warp);
 
   bool has[kMaxPix];
   float px[kMaxPix], py[kMaxPix], gl[kMaxPix], lt_after[kMaxPix];
@@ -103,12 +110,13 @@ surfel_bwd_kernel(const float* __restrict__ rec, long long s_total,
   float gc[kMaxPix][NC];
 #pragma unroll
   for (int q = 0; q < kMaxPix; ++q) {
-    const int pix = tid + q * nthreads;
-    has[q] = pix < npix;
-    const int pp = has[q] ? pix : 0;
+    int ix, iy;
+    warp_cull::pixel(ts, warp, q, lane, ix, iy);
+    has[q] = warp_cull::inside(ts, ix, iy);
+    const int pp = has[q] ? iy * ts + ix : 0;
     // GL pixel centre, as B3 computes it
-    px[q] = x0 + static_cast<float>(pp % ts) + 0.5f;
-    py[q] = y0 + static_cast<float>(pp / ts) + 0.5f;
+    px[q] = x0 + static_cast<float>(ix) + 0.5f;
+    py[q] = y0 + static_cast<float>(iy) + 0.5f;
     const long long at = static_cast<long long>(tile) * npix + pp;
     gl[q] = has[q] ? glogt[at] : 0.0f;
     lt_after[q] = has[q] ? logt[at] : 0.0f;
@@ -116,6 +124,8 @@ surfel_bwd_kernel(const float* __restrict__ rec, long long s_total,
 #pragma unroll
     for (int c = 0; c < NC; ++c) gc[q][c] = has[q] ? gcol[at * NC + c] : 0.0f;
   }
+  // the term whose warp total the reduce-scatter leaves on this lane
+  const int term_of_lane = warp_cull::reduced_term<kTerms>(lane);
 
   for (int k = exit_k[tile] - 1; k >= 0; --k) {
     const long long base = static_cast<long long>(start_chunk + k) * kChunk;
@@ -132,94 +142,126 @@ surfel_bwd_kernel(const float* __restrict__ rec, long long s_total,
     __syncthreads();
     const int lo = max(static_cast<int>(start - base), 0);
     const int hi = min(static_cast<int>(start + count - base), kChunk);
+    const warp_cull::Mask kept = warp_cull::cull(
+        srec[9], srec[10], srec[12 + NC], srec[13 + NC], lo, hi, rect, lane);
 
-    // B3's loop for each pixel: the same chunk_log bits.
-    float chunk_log[kMaxPix], lt_before[kMaxPix], rest[kMaxPix];
+    // T before the pair being swept is exp(t_base - rest), as in B2
+    // (composite_bwd.cu): t_base = logt_after, and the sweep's own sum
+    // rebuilds logt_before, unless a pixel of the warp may have had its T
+    // fall below exp(cs_floor) in this chunk (logt_after <= cs_floor + 1).
+    // Then the warp replays B3's loop over the kept pairs, in ascending
+    // order, for each of its pixels: the same chunk_log bits.
+    bool dying = false;
 #pragma unroll
     for (int q = 0; q < kMaxPix; ++q) {
-      chunk_log[q] = 0.0f;
-      rest[q] = 0.0f;
-      if (has[q]) {
-        for (int l = lo; l < hi; ++l) {
-          surfel::Fragment f;
-          if (!surfel::fragment<NC>(&srec[0][l], px[q], py[q], min_alpha, f)) {
-            continue;
+      dying |= has[q] && !(lt_after[q] > cs_floor + 1.0f);
+    }
+    const bool replay = __any_sync(kFull, dying);
+    float t_base[kMaxPix], lt_before[kMaxPix], rest[kMaxPix];
+#pragma unroll
+    for (int q = 0; q < kMaxPix; ++q) {
+      t_base[q] = lt_after[q];
+      lt_before[q] = rest[q] = 0.0f;
+    }
+    if (replay) {
+      float chunk_log[kMaxPix];
+#pragma unroll
+      for (int q = 0; q < kMaxPix; ++q) chunk_log[q] = 0.0f;
+#pragma unroll 1
+      for (int j = 0; j < warp_cull::kWords; ++j) {
+        for (unsigned bits = warp_cull::word(kept, j); bits != 0;) {
+          const int l = j * 32 + warp_cull::pop_lowest(bits);
+#pragma unroll
+          for (int q = 0; q < kMaxPix; ++q) {
+            surfel::Fragment f;
+            if (!has[q] || !surfel::fragment<NC>(&srec[0][l], px[q], py[q],
+                                                 min_alpha, f)) {
+              continue;
+            }
+            chunk_log[q] += log1pf(-f.alpha);
           }
-          chunk_log[q] += log1pf(-f.alpha);
         }
       }
-      lt_before[q] = lt_after[q] - fmaxf(chunk_log[q], cs_floor);
-    }
-
-    // Reverse sweep.  Every lane runs every iteration (no early continue
-    // before the vote) so the warp collectives see the whole warp.
-    for (int l = hi - 1; l >= lo; --l) {
-      float term[kTerms];
-#pragma unroll
-      for (int j = 0; j < kTerms; ++j) term[j] = 0.0f;
-      bool any = false;
 #pragma unroll
       for (int q = 0; q < kMaxPix; ++q) {
-        surfel::Fragment f;
-        if (!has[q] ||
-            !surfel::fragment<NC>(&srec[0][l], px[q], py[q], min_alpha, f)) {
-          continue;
-        }
-        any = true;
-        rest[q] += log1pf(-f.alpha);
-        const float t_i = expf(chunk_log[q] - rest[q] + lt_before[q]);
-        const float w = f.alpha * t_i;
-        float cg = 0.0f;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) cg += srec[11 + c][l] * gc[q][c];
-        float d_alpha = 0.0f;
-        if (f.alpha > 0.0f && f.alpha < surfel::kAlphaMax) {
-          const float one_minus = fmaxf(1.0f - f.alpha, 1e-6f);
-          d_alpha = t_i * cg - sg[q] / one_minus - gl[q] / one_minus;
-        }
-        sg[q] += w * cg;
+        lt_before[q] = lt_after[q] - fmaxf(chunk_log[q], cs_floor);
+        t_base[q] = chunk_log[q] + lt_before[q];
+      }
+    }
 
-        // the fragment's transpose
-        const float d_rho = d_alpha * srec[11 + NC][l] * f.ea * -0.5f;
-        float d_su = 0.0f, d_sv = 0.0f, d_dx = 0.0f, d_dy = 0.0f;
-        if (f.use3d) {
-          d_su = 2.0f * f.su * d_rho;
-          d_sv = 2.0f * f.sv * d_rho;
-        } else {
-          d_dx = 4.0f * f.dx * d_rho;
-          d_dy = 4.0f * f.dy * d_rho;
+    // Reverse sweep over the kept pairs.  Every lane runs every step (the
+    // mask is the warp's), so the warp collectives see the whole warp.
+#pragma unroll 1
+    for (int j = warp_cull::kWords - 1; j >= 0; --j) {
+      for (unsigned bits = warp_cull::word(kept, j); bits != 0;) {
+        const int l = j * 32 + warp_cull::pop_highest(bits);
+        float term[kTerms];
+#pragma unroll
+        for (int t = 0; t < kTerms; ++t) term[t] = 0.0f;
+        bool any = false;
+#pragma unroll
+        for (int q = 0; q < kMaxPix; ++q) {
+          surfel::Fragment f;
+          if (!has[q] ||
+              !surfel::fragment<NC>(&srec[0][l], px[q], py[q], min_alpha, f)) {
+            continue;
+          }
+          any = true;
+          rest[q] += log1pf(-f.alpha);
+          const float t_i = expf(t_base[q] - rest[q]);
+          const float w = f.alpha * t_i;
+          float cg = 0.0f;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) cg += srec[11 + c][l] * gc[q][c];
+          float d_alpha = 0.0f;
+          if (f.alpha > 0.0f && f.alpha < surfel::kAlphaMax) {
+            const float one_minus = fmaxf(1.0f - f.alpha, 1e-6f);
+            d_alpha = t_i * cg - sg[q] / one_minus - gl[q] / one_minus;
+          }
+          sg[q] += w * cg;
+
+          // the fragment's transpose
+          const float d_rho = d_alpha * srec[11 + NC][l] * f.ea * -0.5f;
+          float d_su = 0.0f, d_sv = 0.0f, d_dx = 0.0f, d_dy = 0.0f;
+          if (f.use3d) {
+            d_su = 2.0f * f.su * d_rho;
+            d_sv = 2.0f * f.sv * d_rho;
+          } else {
+            d_dx = 4.0f * f.dx * d_rho;
+            d_dy = 4.0f * f.dy * d_rho;
+          }
+          const float inv_p2 = 1.0f / f.p2;
+          const float d_p0 = d_su * inv_p2;
+          const float d_p1 = d_sv * inv_p2;
+          const float d_p2 = -(f.su * d_su + f.sv * d_sv) * inv_p2;
+          const float d_k0 = f.l1 * d_p2 - f.l2 * d_p1;
+          const float d_k1 = f.l2 * d_p0 - f.l0 * d_p2;
+          const float d_k2 = f.l0 * d_p1 - f.l1 * d_p0;
+          const float d_l0 = f.k2 * d_p1 - f.k1 * d_p2;
+          const float d_l1 = f.k0 * d_p2 - f.k2 * d_p0;
+          const float d_l2 = f.k1 * d_p0 - f.k0 * d_p1;
+          term[0] -= d_k0;
+          term[1] -= d_l0;
+          term[2] += px[q] * d_k0 + py[q] * d_l0;
+          term[3] -= d_k1;
+          term[4] -= d_l1;
+          term[5] += px[q] * d_k1 + py[q] * d_l1;
+          term[6] -= d_k2;
+          term[7] -= d_l2;
+          term[8] += px[q] * d_k2 + py[q] * d_l2;
+          term[9] -= d_dx;
+          term[10] -= d_dy;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) term[11 + c] += w * gc[q][c];
+          term[11 + NC] += d_alpha * f.ea;
         }
-        const float inv_p2 = 1.0f / f.p2;
-        const float d_p0 = d_su * inv_p2;
-        const float d_p1 = d_sv * inv_p2;
-        const float d_p2 = -(f.su * d_su + f.sv * d_sv) * inv_p2;
-        const float d_k0 = f.l1 * d_p2 - f.l2 * d_p1;
-        const float d_k1 = f.l2 * d_p0 - f.l0 * d_p2;
-        const float d_k2 = f.l0 * d_p1 - f.l1 * d_p0;
-        const float d_l0 = f.k2 * d_p1 - f.k1 * d_p2;
-        const float d_l1 = f.k0 * d_p2 - f.k2 * d_p0;
-        const float d_l2 = f.k1 * d_p0 - f.k0 * d_p1;
-        term[0] -= d_k0;
-        term[1] -= d_l0;
-        term[2] += px[q] * d_k0 + py[q] * d_l0;
-        term[3] -= d_k1;
-        term[4] -= d_l1;
-        term[5] += px[q] * d_k1 + py[q] * d_l1;
-        term[6] -= d_k2;
-        term[7] -= d_l2;
-        term[8] += px[q] * d_k2 + py[q] * d_l2;
-        term[9] -= d_dx;
-        term[10] -= d_dy;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) term[11 + c] += w * gc[q][c];
-        term[11 + NC] += d_alpha * f.ea;
+        if (!__any_sync(kFull, any)) continue;  // warp-uniform
+        warp_cull::reduce_add(term, lane, term_of_lane, &sacc[0][0], l);
       }
-      if (!__any_sync(0xffffffffu, any)) continue;  // warp-uniform
+    }
+    if (!replay) {
 #pragma unroll
-      for (int j = 0; j < kTerms; ++j) {
-        const float v = warp_sum(term[j]);
-        if (lane == 0 && v != 0.0f) atomicAdd(&sacc[j][l], v);
-      }
+      for (int q = 0; q < kMaxPix; ++q) lt_before[q] = lt_after[q] - rest[q];
     }
     __syncthreads();
     for (int i = tid; i < kTerms * kChunk; i += nthreads) {
@@ -244,15 +286,13 @@ extern "C" int surfel_bwd(const float* rec, long long s_total, int nc,
                           const float* glogt, int num_tiles, int ts,
                           int tiles_x, float min_alpha, float cs_floor,
                           float* grad, void* stream) {
-  const int npix = ts * ts;
-  if (npix > kThreads * kMaxPix) {
+  if (warp_cull::warps(ts) * 32 > kThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_tiles > 0) {
     const dim3 grid(num_tiles);
-    // whole warps (the sweep's collectives), at most kThreads
-    const int warps = (npix + 31) / 32;
-    const dim3 block(warps * 32 < kThreads ? warps * 32 : kThreads);
+    // whole warps (the sweep's collectives)
+    const dim3 block(warp_cull::warps(ts) * 32);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (nc == 3) {
       surfel_bwd_kernel<3><<<grid, block, 0, s>>>(

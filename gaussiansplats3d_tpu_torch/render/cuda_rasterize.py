@@ -15,24 +15,25 @@ B2 replays from.
 
 **B2 replaces** ``pallas_rasterize.py::_composite_bwd`` (kernel
 ``_bwd_one_tile``).  Source ``csrc/composite_bwd.cu``: the same block and
-thread layout; chunks ``exit_k - 1 .. 0`` in reverse, each thread first
-recomputing the chunk's log-transmittance sum with B1's own loop, then
-sweeping the chunk backwards with the entry log T rebuilt by subtracting
-the clamped sum; each pair's gradient terms are summed over the tile's
-pixels by warp shuffles and shared-memory adds, and written once to the
-pair's slot (a slot lies in one tile's window only, so no global atomics
-and no read-modify-write of shared boundary chunks).
+thread layout; chunks ``exit_k - 1 .. 0`` in reverse.  Each warp first
+culls the staged chunk against the rectangle of its pixels
+(``csrc/warp_cull.cuh``; :func:`warp_keep` is its plain mirror), then
+sweeps the kept pairs backwards with T taken from B1's residual log T
+(B1's chunk sum is replayed, bit for bit, only in a warp where T may have
+died in the chunk); each pair's gradient terms are summed over the warp by
+one reduce-scatter and over the tile in shared memory, and written once to
+the pair's slot (a slot lies in one tile's window only, so no global
+atomics and no read-modify-write of shared boundary chunks).
 
 **What bounds them on the H100.**  Each record is read once per tile that
 holds it (44-48 bytes a pair), while each pair is evaluated at every pixel
 of the tile until the tile exits (1024 evaluations at tile size 32):
-arithmetic, not memory, bounds both.  The designs answer that only simply
-for now: the cheap support-box test rejects most pair-pixel evaluations
-before the ``exp``, records come from shared memory as broadcasts, the
-whole tile stops at the exit, and B2 skips a pair's reduction in a warp
-where no pixel is inside its cut-offs.  Making them fast (several pixels per
-thread, warp-level culling of pairs, a tile size chosen for the card) is
-later work.
+arithmetic, not memory, bounds both.  B1 answers that simply: the cheap
+support-box test rejects most pair-pixel evaluations before the ``exp``,
+records come from shared memory as broadcasts, the whole tile stops at the
+exit.  B2 walks only the pairs whose box reaches a warp's patch of 8 x 8
+pixels (512 threads of 2 pixels a tile, :data:`WARP_PATCH`), skips the
+replay of B1's sum where it can, and reduces a pair's terms in one pass.
 
 **Plain versions** (:func:`composite_fwd_torch`,
 :func:`composite_bwd_torch`): the same functions in PyTorch, groups of
@@ -64,6 +65,9 @@ _CS_FLOOR = math.log(1e-37)
 _EXIT_T = 1e-4
 # Tiles per step of the plain version: [64, 128, P] float32 temporaries.
 _GROUP_SIZE = 64
+# The side of the square patch of pixels each warp of B2 and B4 holds
+# (csrc/warp_cull.cuh: kPatch); see warp_rects.
+WARP_PATCH = 8
 
 launches = 0
 """Launches of the CUDA kernel B1 made by :func:`composite_fwd` (the plain
@@ -171,6 +175,46 @@ def _tile_origins(tile_ids, cfg: RenderConfig):
     ty = torch.div(tile_ids, cfg.tiles_x, rounding_mode="floor").to(
         torch.float32)
     return tx * ts, ty * ts
+
+
+def warp_rects(cfg: RenderConfig):
+    """The rectangle of pixel centres each warp of a backward compositor
+    holds (``csrc/warp_cull.cuh``'s ``rect``), as offsets from the tile's
+    corner: ``[W, 4]`` float32 (x0, x1, y0, y1), one row per warp.  The
+    warps tile the tile with :data:`WARP_PATCH`-square patches, row-major,
+    clipped to it."""
+    ts = cfg.tile_size
+    across = -(-ts // WARP_PATCH)
+    w = torch.arange(across * across)
+    c0, r0 = w % across * WARP_PATCH, w // across * WARP_PATCH
+    c1 = torch.clamp(c0 + WARP_PATCH, max=ts) - 1
+    r1 = torch.clamp(r0 + WARP_PATCH, max=ts) - 1
+    return torch.stack([c0, c1, r0, r1], dim=1).to(torch.float32) + 0.5
+
+
+def warp_keep(x, y, rx, ry, x0, x1, y0, y1):
+    """The per-warp cull's predicate (``csrc/warp_cull.cuh::may_touch``),
+    broadcasting, float32 as the kernel computes it: whether a pair
+    centred at (x, y) with box half-widths (rx, ry) may pass the box test
+    ``|p - c| <= r`` at a pixel centre of the rectangle [x0, x1] x [y0,
+    y1].  A superset of that test: one pixel of slack, grown with the
+    magnitudes; a NaN keeps the pair."""
+    sx = 1.0 + 1e-5 * (torch.abs(x) + torch.abs(rx))
+    sy = 1.0 + 1e-5 * (torch.abs(y) + torch.abs(ry))
+    return ~((x - rx - sx > x1) | (x + rx + sx < x0)
+             | (y - ry - sy > y1) | (y + ry + sy < y0))
+
+
+def kept_pair_warps(x, y, rx, ry, tile_ids, cfg: RenderConfig):
+    """How many warps of its tile keep each pair (:func:`warp_keep`
+    against :func:`warp_rects`): [B] int64 for pairs with centres (x, y),
+    boxes (rx, ry) and global tile ids ``tile_ids``, all [B]."""
+    rects = warp_rects(cfg).to(x.device)               # [W, 4]
+    tx, ty = _tile_origins(tile_ids, cfg)
+    keep = warp_keep(x[:, None], y[:, None], rx[:, None], ry[:, None],
+                     tx[:, None] + rects[:, 0], tx[:, None] + rects[:, 1],
+                     ty[:, None] + rects[:, 2], ty[:, None] + rects[:, 3])
+    return keep.sum(dim=1)
 
 
 def _chunk_pairs(rec, window, x0, y0, nc, cfg: RenderConfig):

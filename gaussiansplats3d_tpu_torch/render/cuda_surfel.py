@@ -20,19 +20,21 @@ at a time in shared memory, floor-aligned 128-pair chunk windows, T kept as
 a product, log T as the sum of ``max(chunk_log, _CS_FLOOR)``, the tile stops
 once every pixel's T is at most 1e-4.  Outputs colors ``[T, P, NC]``, logt
 ``[T, P]`` and exit_k ``[T]``.  B4: chunks ``exit_k - 1 .. 0`` in reverse,
-T_i in log space, the suffix of w cg, ``d_alpha = T cg - S / (1 - alpha) -
-glogt / (1 - alpha)`` (the image's alpha is ``1 - exp(logt)``, so glogt is
-nonzero whenever a loss sees the background), then the hand-derived
-transpose through the fragment to the 9 T entries, the center, the
-channels and the opacity, summed over the tile's pixels.  256 threads a
-tile, each with up to 4 pixels: the transpose keeps about twice B2's live
-values, which 1,024 threads of at most 64 registers could not hold.
+each culled per warp (``csrc/warp_cull.cuh``, as B2), T_i in log space from
+B3's residual log T (B3's chunk sum replayed only where T may have died),
+the suffix of w cg, ``d_alpha = T cg - S / (1 - alpha) - glogt / (1 -
+alpha)`` (the image's alpha is ``1 - exp(logt)``, so glogt is nonzero
+whenever a loss sees the background), then the hand-derived transpose
+through the fragment to the 9 T entries, the center, the channels and the
+opacity, summed over the warp by one reduce-scatter and over the tile in
+shared memory.  Up to 512 threads a tile, each with 2 pixels, a warp on
+an 8 x 8 patch (``cuda_rasterize.WARP_PATCH``), as B2.
 
 **What bounds them on the H100.**  As B1/B2: each pair is evaluated at
 every pixel of its tile until the tile exits, and each record is read once
 per tile: arithmetic, not memory.  The box test comes first and rejects
-most visits before the fragment's division and ``exp``.  Making them fast
-is later work.
+most visits before the fragment's division and ``exp``; B4 walks only the
+pairs whose box reaches a warp's patch.
 
 **Plain versions** (:func:`composite_surfel_fwd_torch`,
 :func:`composite_surfel_bwd_torch`): B3/B4's semantics (not the XLA

@@ -30,7 +30,8 @@ from gaussiansplats3d_tpu.render import rasterize
 from gaussiansplats3d_tpu.render.pipeline import chans_from_colors_logt
 from gaussiansplats3d_tpu_torch.render import cuda_rasterize as cr
 
-from torch_port_common import (both_scenes, cuda_device, error_mass,  # noqa: F401
+from torch_port_common import (both_scenes, cuda_device, cull_case,  # noqa: F401
+                               edge_pairs, edge_windows, error_mass,
                                interpret_pallas, scene_arrays)
 
 
@@ -332,6 +333,137 @@ def test_cuda_b1_matches_plain(cuda_device, depth):
         p999, over = error_mass(a.cpu().numpy(), b.cpu().numpy())
         assert p999 <= 1e-3 and over <= 1e-3
     assert float((exit_k == ref[2]).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+def test_warp_cull_mirror_keeps_every_box_hit(tile):
+    """The plain mirror of B2's per-warp cull (warp_keep over B2's warp
+    rectangles) keeps every pair that passes the per-pixel box test at
+    some pixel of the warp, on pairs whose centres or box edges sit within
+    1e-3 px of a warp rectangle's edge, half of them with boxes under a
+    pixel; it drops some; kept_pair_warps counts what it keeps."""
+    cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile)
+    hit, keep = cull_case(cfg, seed=40 + tile)
+    assert bool(hit.any()) and bool((~keep).any())
+    assert int((hit & ~keep).sum()) == 0
+    x, y, rx, ry, t = (torch.from_numpy(a) for a in
+                       edge_pairs(cfg, seed=40 + tile))
+    assert torch.equal(cr.kept_pair_warps(x, y, rx, ry, t, cfg),
+                       keep.sum(dim=1))
+
+
+@pytest.mark.parametrize("tile", [8, 16, 24, 32])
+def test_warp_rects_tile_the_tile(tile):
+    """warp_rects, the mirror of B2's and B4's pixel layout
+    (csrc/warp_cull.cuh), covers every pixel centre of the tile in exactly
+    one warp's rectangle, with as many warps as the kernels launch: 8 x 8
+    patches, at most 16 warps (512 threads) at tile 32."""
+    cfg = gt.RenderConfig(width=tile, height=tile, tile_size=tile)
+    rects = cr.warp_rects(cfg)
+    across = -(-tile // cr.WARP_PATCH)
+    assert rects.shape == (across * across, 4)
+    assert rects.shape[0] * 32 * 2 >= tile * tile and rects.shape[0] <= 16
+    c = torch.arange(tile, dtype=torch.float32) + 0.5
+    px, py = c[None, :].expand(tile, tile), c[:, None].expand(tile, tile)
+    inside = ((px[None] >= rects[:, 0, None, None])
+              & (px[None] <= rects[:, 1, None, None])
+              & (py[None] >= rects[:, 2, None, None])
+              & (py[None] <= rects[:, 3, None, None]))
+    assert torch.equal(inside.sum(dim=0), torch.ones(tile, tile,
+                                                     dtype=torch.long))
+    assert float((rects[:, 1] - rects[:, 0]).max()) == cr.WARP_PATCH - 1
+
+
+def port_pairs(device, tile, seed, big=0.0, n=3000, width=200, height=150):
+    """The port's own f32 records of a numpy-made scene, binned on
+    ``device`` at tile size ``tile``, the first ``big`` share of the splats
+    scaled x20: (cfg, (records, starts, counts, tile ids))."""
+    from gaussiansplats3d_tpu_torch.render.binning import bin_sort_records
+    from gaussiansplats3d_tpu_torch.render.projection import project_splats
+    means, scales, *rest = scene_arrays(n, sh_degree=0, seed=seed)
+    scales[:int(big * n)] *= 20.0
+    s = gt.SplatData.from_numpy(means, scales, *rest, device=device)
+    cam = gt.Camera.look_at((2.5, 1.5, 2.5), (0.0, 0.0, 0.0), fov_y_deg=60.0,
+                            aspect=width / height, device=device)
+    cfg = gt.RenderConfig(width=width, height=height, tile_size=tile,
+                          record_precision="f32")
+    with torch.no_grad():
+        pairs = bin_sort_records(project_splats(s, cam, cfg), cfg)
+    ids = torch.arange(cfg.num_tiles, dtype=torch.int32, device=device)
+    return cfg, (pairs.records, pairs.tile_starts, pairs.tile_counts, ids)
+
+
+def edge_records(cfg, seed, device):
+    """Records built by hand over 2 x 2 tiles (edge_pairs at B2's warp
+    rectangles), in windows that start mid-chunk: flat Gaussians whose
+    box edge is at g = 1, random colours and opacities 0.3-0.9."""
+    x, y, rx, ry, tile = edge_pairs(cfg, seed, n=1200)
+    slot, starts, counts, cap = edge_windows(tile, cfg.num_tiles)
+    rng = np.random.default_rng(seed)
+    n = x.shape[0]
+    rec = np.zeros((11, cap), np.float32)
+    a, c = 0.5 / rx ** 2, 0.5 / ry ** 2
+    rec[:, slot] = np.stack([
+        x, y, a, 0.2 * np.sqrt(a * c) * rng.uniform(-1.0, 1.0, n), c,
+        *rng.uniform(0.0, 1.0, (3, n)), rng.uniform(0.3, 0.9, n), rx, ry])
+    return (torch.tensor(rec, device=device),
+            torch.tensor(starts, device=device),
+            torch.tensor(counts, device=device),
+            torch.arange(cfg.num_tiles, dtype=torch.int32, device=device))
+
+
+def assert_cuda_b2_matches_plain(cfg, inputs, device, seed):
+    """B1, then B2 with a random cotangent, launched once on the card,
+    against the plain B2: per row normalised p99.9 <= 1e-3 and <= 0.1%
+    over 1e-2."""
+    chans, logt, exit_k = cr.composite_fwd(*inputs, cfg)
+    gch = 0.1 * torch.randn(chans.shape, device=device,
+                            generator=torch.Generator(device).manual_seed(seed))
+    before = cr.bwd_launches
+    grad = cr.composite_bwd(*inputs, logt, exit_k, gch, cfg)
+    torch.cuda.synchronize()
+    assert cr.bwd_launches == before + 1
+    ref = cr.composite_bwd_torch(*inputs, logt, exit_k, gch, cfg)
+    for p999, over in norm_err(grad.cpu().numpy(), ref.cpu().numpy()):
+        assert p999 <= 1e-3 and over <= 1e-3
+    assert float(ref[:9].abs().amax(dim=1).min()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("big", [0.0, 0.05])
+@pytest.mark.parametrize("tile", [16, 32])
+def test_cuda_b2_matches_plain_at_tile_sizes(cuda_device, tile, big):
+    """B2 against its plain version at tiles 16 and 32, on a scene and on
+    the same scene with 5% of the splats scaled x20, whose boxes span many
+    warps and tiles."""
+    cfg, inputs = port_pairs(cuda_device, tile, seed=42, big=big)
+    rx = inputs[0][9][:int(inputs[2].long().sum())]
+    assert float(rx.max()) > (2 * tile if big else 0.0)
+    assert_cuda_b2_matches_plain(cfg, inputs, cuda_device, seed=43)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 32])
+def test_cuda_b2_pairs_at_warp_edges(cuda_device, tile):
+    """B2 against its plain version on hand-built records whose pairs sit
+    just inside and just outside a warp's rectangle (edge_records)."""
+    cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile)
+    inputs = edge_records(cfg, 44 + tile, cuda_device)
+    assert_cuda_b2_matches_plain(cfg, inputs, cuda_device, seed=45)
+
+
+@pytest.mark.cuda
+def test_cuda_b2_replays_where_t_dies(cuda_device):
+    """B2 against its plain version where a chunk's sum of log(1 - alpha)
+    falls below the floor (_exit_records' tile 0: the replay of B1's sum
+    runs), before a window that starts in the exiting tile's last chunk."""
+    cfg = gt.RenderConfig(width=32, height=32, tile_size=16)
+    records, starts, counts = _exit_records()
+    inputs = (torch.tensor(records, device=cuda_device),
+              torch.tensor(starts, device=cuda_device),
+              torch.tensor(counts, device=cuda_device),
+              torch.arange(4, dtype=torch.int32, device=cuda_device))
+    assert_cuda_b2_matches_plain(cfg, inputs, cuda_device, seed=46)
 
 
 def test_build_names_libraries_by_source_and_needs_nvcc(monkeypatch):

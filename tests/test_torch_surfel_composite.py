@@ -31,6 +31,7 @@ from gaussiansplats3d_tpu_torch import _build
 from gaussiansplats3d_tpu_torch.render import cuda_surfel as cs
 
 from torch_port_common import (both_cameras, both_scenes, cuda_device,  # noqa: F401
+                               cull_case, edge_pairs, edge_windows,
                                error_mass, interpret_pallas, scene_arrays)
 
 FIELDS = ("means", "scales", "quats", "colors", "sh")
@@ -256,8 +257,9 @@ def test_build_hashes_the_fragment_header():
     assert {"surfel_fwd", "surfel_bwd"} <= set(_build.KERNELS)
     header = _build.CSRC / "surfel_fragment.cuh"
     names = {}
-    for k in ("surfel_fwd", "surfel_bwd"):
-        assert _build._local_headers(_build.CSRC / f"{k}.cu") == [header]
+    for k, headers in (("surfel_fwd", [header]),
+                       ("surfel_bwd", [header, _build.CSRC / "warp_cull.cuh"])):
+        assert _build._local_headers(_build.CSRC / f"{k}.cu") == headers
         names[k] = _build._paths(k)[1].name
     orig = _build.Path.read_bytes
 
@@ -272,6 +274,115 @@ def test_build_hashes_the_fragment_header():
             "libcomposite_fwd-")
     finally:
         _build.Path.read_bytes = orig
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+def test_warp_cull_mirror_keeps_every_box_hit(tile):
+    """The plain mirror of B4's per-warp cull (warp_keep over B4's warp
+    rectangles) keeps every pair that passes the per-pixel box test at
+    some pixel of the warp, on pairs whose centres or box edges sit within
+    1e-3 px of a warp rectangle's edge, half of them with boxes under a
+    pixel; and it drops some."""
+    cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile,
+                          render_mode_2d=True)
+    hit, keep = cull_case(cfg, seed=70 + tile)
+    assert bool(hit.any()) and bool((~keep).any())
+    assert int((hit & ~keep).sum()) == 0
+
+
+def port_surfels(device, tile, seed, big=0.0, n=3000, size=192):
+    """The port's own f32 surfel records of a numpy-made scene, binned on
+    ``device`` at tile size ``tile``, the first ``big`` share of the splats
+    scaled x20: (cfg, (records, starts, counts, tile ids))."""
+    from gaussiansplats3d_tpu_torch.render.surfel import (bin_sort_surfels,
+                                                          project_surfels)
+    means, scales, *rest = scene_arrays(n, sh_degree=0, seed=seed)
+    scales[:int(big * n)] *= 20.0
+    s = gt.SplatData.from_numpy(means, scales, *rest, device=device)
+    cam = gt.Camera.look_at((2.5, 1.5, 2.5), (0.0, 0.0, 0.0), fov_y_deg=60.0,
+                            aspect=1.0, device=device)
+    cfg = gt.RenderConfig(width=size, height=size, tile_size=tile,
+                          record_precision="f32", render_mode_2d=True)
+    with torch.no_grad():
+        recs, starts, counts, _, _ = bin_sort_surfels(
+            project_surfels(s, cam, cfg), cfg)
+    ids = torch.arange(cfg.num_tiles, dtype=torch.int32, device=device)
+    return cfg, (recs, starts, counts, ids)
+
+
+def edge_surfels(cfg, seed, device):
+    """Surfels built by hand over 2 x 2 tiles (edge_pairs at B4's warp
+    rectangles), in windows that start mid-chunk, facing the camera as in
+    _wall_records: T = [[rx / 2, 0, 0], [0, ry / 2, 0], [cx, cy, 1]], the
+    box at two tangent units; random colours and opacities 0.3-0.9."""
+    x, y, rx, ry, tile = edge_pairs(cfg, seed, n=1200)
+    slot, starts, counts, cap = edge_windows(tile, cfg.num_tiles)
+    rng = np.random.default_rng(seed)
+    n = x.shape[0]
+    rec = np.zeros((17, cap), np.float32)
+    zero, one = np.zeros(n, np.float32), np.ones(n, np.float32)
+    rec[:, slot] = np.stack([
+        rx / 2, zero, zero, zero, ry / 2, zero, x, y, one, x, y,
+        *rng.uniform(0.0, 1.0, (3, n)), rng.uniform(0.3, 0.9, n), rx, ry])
+    return (torch.tensor(rec, device=device),
+            torch.tensor(starts, device=device),
+            torch.tensor(counts, device=device),
+            torch.arange(cfg.num_tiles, dtype=torch.int32, device=device))
+
+
+def assert_cuda_b4_matches_plain(cfg, inputs, device, seed):
+    """B3, then B4 with a random gcol and glogt, launched once on the
+    card, against the plain B4: per row normalised p99.9 <= 1e-3 and <=
+    0.1% over 1e-2."""
+    col, logt, exit_k = cs.composite_surfel_fwd(*inputs, cfg)
+    gen = torch.Generator(device).manual_seed(seed)
+    gcol = 0.1 * torch.randn(col.shape, device=device, generator=gen)
+    glogt = 0.1 * torch.randn(logt.shape, device=device, generator=gen)
+    before = cs.bwd_launches
+    grad = cs.composite_surfel_bwd(*inputs, logt, exit_k, gcol, glogt, cfg)
+    torch.cuda.synchronize()
+    assert cs.bwd_launches == before + 1
+    ref = cs.composite_surfel_bwd_torch(*inputs, logt, exit_k, gcol, glogt,
+                                        cfg)
+    for p999, over in norm_err(grad.cpu().numpy(), ref.cpu().numpy()):
+        assert p999 <= 1e-3 and over <= 1e-3
+    # the channel and opacity rows always have a gradient (the center's
+    # only where the screen-space term wins somewhere)
+    assert float(ref[11:-2].abs().amax(dim=1).min()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("big", [0.0, 0.05])
+@pytest.mark.parametrize("tile", [16, 32])
+def test_cuda_b4_matches_plain_at_tile_sizes(cuda_device, tile, big):
+    """B4 against its plain version at tiles 16 and 32, on a scene and on
+    the same scene with 5% of the splats scaled x20, whose boxes span many
+    warps and tiles."""
+    cfg, inputs = port_surfels(cuda_device, tile, seed=71, big=big)
+    rx = inputs[0][15][:int(inputs[2].long().sum())]
+    assert float(rx.max()) > (2 * tile if big else 0.0)
+    assert_cuda_b4_matches_plain(cfg, inputs, cuda_device, seed=72)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [16, 32])
+def test_cuda_b4_pairs_at_warp_edges(cuda_device, tile):
+    """B4 against its plain version on hand-built surfels that sit just
+    inside and just outside a warp's rectangle (edge_surfels)."""
+    cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile,
+                          render_mode_2d=True)
+    inputs = edge_surfels(cfg, 73 + tile, cuda_device)
+    assert_cuda_b4_matches_plain(cfg, inputs, cuda_device, seed=74)
+
+
+@pytest.mark.cuda
+def test_cuda_b4_replays_where_t_dies(cuda_device):
+    """B4 against its plain version on the wall (_wall_records: tile 0's
+    first chunk drives T below the floor, so the replay of B3's sum runs),
+    with an unaligned window in the exiting tile's last chunk."""
+    _, cfg = _wall_cfgs()
+    inputs = port_inputs(*_wall_records(), device=cuda_device)
+    assert_cuda_b4_matches_plain(cfg, inputs, cuda_device, seed=75)
 
 
 @pytest.mark.cuda

@@ -47,6 +47,83 @@ def both_cameras(cam_j, device="cpu"):
                                        device=device)
 
 
+def edge_pairs(cfg, seed, n=3000):
+    """Random pairs for the backward compositors' per-warp cull: numpy
+    float32 centres x, y, box half-widths rx, ry (pixels, the image's
+    coordinates) and int64 tile ids, n each.  Half the boxes are under a
+    pixel (rx, ry < 1).  On each axis a third of the centres sit within
+    1e-3 px of an edge of a random warp's rectangle
+    (cuda_rasterize.warp_rects), a third put their box's edge there, the
+    rest lie anywhere over the tile and 3 px around it."""
+    from gaussiansplats3d_tpu_torch.render import cuda_rasterize as cr
+    rng = np.random.default_rng(seed)
+    ts = cfg.tile_size
+    rects = cr.warp_rects(cfg).numpy()
+    tile = rng.integers(0, cfg.num_tiles, n)
+    corner = np.stack([tile % cfg.tiles_x, tile // cfg.tiles_x], 1) * ts
+    r = np.where(rng.random((n, 2)) < 0.5, rng.uniform(0.05, 1.0, (n, 2)),
+                 rng.uniform(1.0, 6.0, (n, 2)))
+    c = rng.uniform(-3.0, ts + 3.0, (n, 2))
+    w = rng.integers(0, rects.shape[0], n)
+    for axis in (0, 1):
+        edge = np.where(rng.random(n) < 0.5, rects[w, 2 * axis],
+                        rects[w, 2 * axis + 1])
+        jitter = rng.uniform(-1e-3, 1e-3, n)
+        sign = np.where(rng.random(n) < 0.5, -1.0, 1.0)
+        which = rng.integers(0, 3, n)
+        c[:, axis] = np.select([which == 1, which == 2],
+                               [edge + jitter,
+                                edge + sign * r[:, axis] + jitter],
+                               c[:, axis])
+    xy = (corner + c).astype(np.float32)
+    r = r.astype(np.float32)
+    return xy[:, 0], xy[:, 1], r[:, 0], r[:, 1], tile
+
+
+def edge_windows(tile, num_tiles, gap=37):
+    """Slots for pairs grouped by tile, each tile's window starting `gap`
+    slots after the previous one ends (so windows start mid-chunk):
+    (slot of each pair, starts, counts int32 [num_tiles], capacity S, a
+    multiple of 128)."""
+    n = tile.shape[0]
+    counts = np.bincount(tile, minlength=num_tiles)
+    starts = np.cumsum(counts + gap) - counts
+    order = np.argsort(tile, kind="stable")
+    first = np.cumsum(counts) - counts
+    slot = np.empty(n, np.int64)
+    slot[order] = starts[tile[order]] + np.arange(n) - first[tile[order]]
+    cap = -(-int(starts[-1] + counts[-1]) // 128) * 128
+    return slot, starts.astype(np.int32), counts.astype(np.int32), cap
+
+
+def cull_case(cfg, seed):
+    """The per-pixel box test against the per-warp cull's plain mirror on
+    :func:`edge_pairs`: (hit, keep), [n, W] bool each.  hit: some pixel of
+    the warp passes |p - c| <= r, float32 as the kernels compute it;
+    keep: ``cuda_rasterize.kept_pair_warps``' predicate."""
+    from gaussiansplats3d_tpu_torch.render import cuda_rasterize as cr
+    x, y, rx, ry, tile = (torch.from_numpy(a) for a in
+                          edge_pairs(cfg, seed))
+    ts = cfg.tile_size
+    npix = ts * ts
+    rects = cr.warp_rects(cfg)
+    tx, ty = cr._tile_origins(tile, cfg)
+    p = torch.arange(npix)
+    px = tx[:, None] + (p % ts).float() + 0.5                   # [n, P]
+    py = ty[:, None] + (p // ts).float() + 0.5
+    in_box = ((px - x[:, None]).abs() <= rx[:, None]) & (
+        (py - y[:, None]).abs() <= ry[:, None])
+    # a warp's pixels are the tile's pixels inside its rectangle
+    pcx, pcy = (p % ts).float() + 0.5, (p // ts).float() + 0.5
+    hit = torch.stack([
+        in_box[:, (pcx >= r[0]) & (pcx <= r[1]) & (pcy >= r[2])
+               & (pcy <= r[3])].any(dim=1) for r in rects], dim=1)
+    keep = cr.warp_keep(x[:, None], y[:, None], rx[:, None], ry[:, None],
+                        tx[:, None] + rects[:, 0], tx[:, None] + rects[:, 1],
+                        ty[:, None] + rects[:, 2], ty[:, None] + rects[:, 3])
+    return hit, keep
+
+
 def error_mass(a, b, bar=1e-2):
     """(p99.9 of |a - b|, share of elements with |a - b| > bar)."""
     d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
