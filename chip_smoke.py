@@ -14,8 +14,8 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    shapes the main paths give it (the port's own binning of the main-path
    scene, in each configuration of phases 3 and 5), by error mass; then
    each one's time (CUDA events), its plain version's time and its bound,
-   from the work this run's data needs, and for B2 and B4 how many of the
-   pair-warp visits their per-warp cull keeps (its plain mirror,
+   from the work this run's data needs, and for each of B1-B4 how many of
+   the pair-warp visits its per-warp cull keeps (the plain mirror,
    cuda_rasterize.kept_pair_warps).  B2's cotangent is that of
    mean(color^2) at B1's chans;
 3. the serving path: render() of 2M random splats (seeded, the JAX
@@ -215,7 +215,8 @@ def toolchain(gt_build):
         f"{time.perf_counter() - t0:.1f} s")
     for name in gt_build.KERNELS:
         for line in gt_build.ptxas_report(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Function properties" in line):
                 log(f"  ptxas {name}: {line.strip()}")
 
 
@@ -305,15 +306,18 @@ def b1_work(cr, pairs, exit_k, cfg):
     # chans, logt and exit_k written once
     nbytes = (total * (nc + 8) * 4 + 3 * t * 4 + t * (nc + 1) * p * 4
               + t * p * 4 + t * 4)
+    counts.update(cull_counts(pairs.records, (0, 1, nc + 6, nc + 7),
+                              cr.CHUNK, pairs.tile_starts, pairs.tile_counts,
+                              exit_k, cfg))
     return counts, ops, nbytes
 
 
 def cull_counts(recs, rows, chunk, starts, counts, exit_k, cfg):
-    """The pair-warp visits a backward compositor's per-warp cull leaves
+    """The pair-warp visits a compositor's per-warp cull leaves
     (cuda_rasterize.kept_pair_warps, the plain mirror of warp_cull.cuh):
-    every pair replayed (chunks < exit_k) against every warp of its tile,
-    and how many of those the cull keeps.  ``rows``: the records' centre x,
-    y and box rx, ry rows."""
+    every pair composited or replayed (chunks < exit_k) against every warp
+    of its tile, and how many of those the cull keeps.  ``rows``: the
+    records' centre x, y and box rx, ry rows."""
     from gaussiansplats3d_tpu_torch.render import cuda_rasterize as cr
     tile, slot, total = visited_slots(chunk, starts, counts, exit_k, cfg)
     warps = cr.warp_rects(cfg).shape[0]
@@ -439,7 +443,9 @@ def check_b1(cr, splats, cam, name, cfg):
         f" bytes); pairs visited {counts['pairs']}, pair-pixel visits "
         f"before exit {counts['visits']}, in "
         f"box {counts['in_box']}, in cut-off {counts['in_cutoff']}, "
-        f"contributing {counts['contributing']}; mean exit_k "
+        f"contributing {counts['contributing']}; pair-warp visits "
+        f"{counts['pair_warps']}, kept by the cull "
+        f"{counts['kept_pair_warps']}; mean exit_k "
         f"{float(exit_k.double().mean()):.2f}, pairs in windows "
         f"{int(pairs.tile_counts.long().sum())}")
     return {"max_abs_err": max(err["chans"]["max_abs"],
@@ -450,11 +456,13 @@ def check_b1(cr, splats, cam, name, cfg):
 
 
 def check_b1_all(cr, splats, cam, cfg):
-    """check_b1 on every main-path configuration.  The kernels-line entry
-    takes its times and bound from the default configuration and its
+    """check_b1 on every configuration the serving and training paths
+    drive (mixed, packed+forward_only, train-packed).  The kernels-line
+    entry takes its times and bound from the default configuration and its
     max_abs_err from the worst configuration."""
+    configs = dict(configs_of(cfg) + train_configs_of(cfg))
     per_config = {name: check_b1(cr, splats, cam, name, c)
-                  for name, c in configs_of(cfg)}
+                  for name, c in configs.items()}
     main = per_config["mixed"]
     return {"name": "composite_fwd", "route": "cuda",
             "source": "gaussiansplats3d_tpu_torch/csrc/composite_fwd.cu",
@@ -1098,6 +1106,8 @@ def b3_work(cs, args, exit_k, cfg):
     # colors, logt and exit_k written once
     nbytes = (total * (nc + 14) * 4 + 3 * t * 4 + t * p * nc * 4 + t * p * 4
               + t * 4)
+    counts.update(cull_counts(args[0], (9, 10, nc + 12, nc + 13),
+                              cs.CHUNK, args[1], args[2], exit_k, cfg))
     return counts, ops, nbytes
 
 
@@ -1159,7 +1169,9 @@ def check_b3(cs, splats, cam, name, cfg):
         f" bytes); pairs visited {counts['pairs']}, pair-pixel visits "
         f"before exit {counts['visits']}, in "
         f"box {counts['in_box']}, past the cuts {counts['past_cuts']}, "
-        f"contributing {counts['contributing']}; mean exit_k "
+        f"contributing {counts['contributing']}; pair-warp visits "
+        f"{counts['pair_warps']}, kept by the cull "
+        f"{counts['kept_pair_warps']}; mean exit_k "
         f"{float(exit_k.double().mean()):.2f}, pairs in windows "
         f"{int(args[2].long().sum())}, overflow {overflow}")
     return {"max_abs_err": max(err["colors"]["max_abs"],

@@ -5,13 +5,13 @@
 // _bwd_one_tile).  The Python side, its checks and its plain PyTorch
 // version (composite_bwd_torch) live in render/cuda_rasterize.py.
 //
-// One block per tile (P = tile_size^2 <= 1024, a multiple of 32) of up to
-// 512 threads, each holding 2 pixels: a warp holds an 8 x 8 patch of the
-// tile, lane l the pixels (l % 8, l / 8) and (l % 8, l / 8 + 4) of it
+// One block per tile (tile_size <= 32) of up to 512 threads, each holding
+// 2 pixels, B1's layout: a warp holds an 8 x 8 patch of the tile, lane l
+// the pixels (l % 8, l / 8) and (l % 8, l / 8 + 4) of it
 // (warp_cull::pixel), so a pair's box covers few warps and many of their
-// lanes.  The tile's chunks are replayed in reverse, from exit_k - 1 down
-// to 0: chunks at or past exit_k never ran forward and contribute
-// nothing.  For each chunk:
+// lanes; pixels past the tile's edge are masked (has[q]).  The tile's
+// chunks are replayed in reverse, from exit_k - 1 down to 0: chunks at or
+// past exit_k never ran forward and contribute nothing.  For each chunk:
 //
 // 1. the chunk's 128 records are staged in shared memory, and each warp
 //    culls them against the rectangle of its pixels (warp_cull.cuh): a
@@ -24,8 +24,9 @@
 //    sum rebuilds logt_before.  Only where T fell below exp(cs_floor) in
 //    the chunk is chunk_log clamped, and then logt_after <= cs_floor: a
 //    warp with such a pixel (logt_after <= cs_floor + 1) first replays
-//    B1's loop over the kept pairs in ascending order (the expression is
-//    composite_fwd.cu's, textually).  The pairs the cull drops are ones B1
+//    B1's loop over the kept pairs in ascending order (both kernels
+//    evaluate alpha with gauss_fragment.cuh, whose round-to-nearest
+//    intrinsics nvcc cannot contract).  The pairs the cull drops are ones B1
 //    skipped at these pixels, so that is B1's sequence of adds, and
 //    logt_before = logt_after - max(chunk_log, cs_floor) undoes B1's
 //    per-chunk accumulation;
@@ -68,6 +69,7 @@
 
 #include <cuda_runtime.h>
 
+#include "gauss_fragment.cuh"
 #include "warp_cull.cuh"
 
 namespace {
@@ -75,9 +77,6 @@ namespace {
 using warp_cull::kAccStride;
 using warp_cull::kChunk;
 using warp_cull::kFull;
-
-constexpr float kGaussianCutoff = 8.0f;
-constexpr float kAlphaClamp = 0.999f;
 using warp_cull::kPix;                      // pixels a thread
 constexpr int kThreads = 32 * 32 / kPix;   // enough for a 32 x 32 tile
 
@@ -189,18 +188,12 @@ composite_bwd_kernel(const float* __restrict__ rec, long long s_total,
           const int l = j * 32 + warp_cull::pop_lowest(bits);
 #pragma unroll
           for (int q = 0; q < kPix; ++q) {
-            const float dx = px[q] - srec[0][l];
-            const float dy = py[q] - srec[1][l];
-            if (fabsf(dx) > srec[NC + 6][l] || fabsf(dy) > srec[NC + 7][l]) {
+            gauss::Fragment f;
+            if (!has[q] || !gauss::fragment<NC>(&srec[0][l], px[q], py[q],
+                                                min_alpha, f)) {
               continue;
             }
-            const float g = srec[2][l] * dx * dx + 2.0f * srec[3][l] * dx * dy
-                            + srec[4][l] * dy * dy;
-            if (g > kGaussianCutoff) continue;
-            float alpha = srec[NC + 5][l] * expf(-0.5f * g);
-            if (!(alpha >= min_alpha)) continue;
-            alpha = fminf(alpha, kAlphaClamp);
-            chunk_log[q] += log1pf(-alpha);
+            chunk_log[q] += log1pf(-f.alpha);
           }
         }
       }
@@ -225,19 +218,13 @@ composite_bwd_kernel(const float* __restrict__ rec, long long s_total,
         bool any = false;
 #pragma unroll
         for (int q = 0; q < kPix; ++q) {
-          const float dx = px[q] - srec[0][l];
-          const float dy = py[q] - srec[1][l];
-          if (!has[q] || fabsf(dx) > srec[NC + 6][l] ||
-              fabsf(dy) > srec[NC + 7][l]) {
+          gauss::Fragment f;
+          if (!has[q] || !gauss::fragment<NC>(&srec[0][l], px[q], py[q],
+                                              min_alpha, f)) {
             continue;
           }
-          const float g = ca * dx * dx + 2.0f * cb * dx * dy + cc * dy * dy;
-          if (g > kGaussianCutoff) continue;
-          const float e = expf(-0.5f * g);
-          float alpha = opa * e;
-          if (!(alpha >= min_alpha)) continue;
           any = true;
-          alpha = fminf(alpha, kAlphaClamp);
+          const float dx = f.dx, dy = f.dy, alpha = f.alpha;
           rest[q] += log1pf(-alpha);
           const float t_i = expf(t_base[q] - rest[q]);
           const float w = alpha * t_i;
@@ -245,7 +232,7 @@ composite_bwd_kernel(const float* __restrict__ rec, long long s_total,
 #pragma unroll
           for (int c = 0; c < NC; ++c) cg += srec[5 + c][l] * gch[q][c];
           float d_alpha = 0.0f;
-          if (alpha > 0.0f && alpha < kAlphaClamp) {
+          if (alpha > 0.0f && alpha < gauss::kAlphaClamp) {
             d_alpha = t_i * cg - sg[q] / fmaxf(1.0f - alpha, 1e-6f);
           }
           sg[q] += w * cg;
@@ -257,7 +244,7 @@ composite_bwd_kernel(const float* __restrict__ rec, long long s_total,
           t[4] += d_quad * dy * dy;
 #pragma unroll
           for (int c = 0; c < NC; ++c) t[5 + c] += w * gch[q][c];
-          t[5 + NC] += opa > 0.0f ? d_alpha * e : 0.0f;
+          t[5 + NC] += opa > 0.0f ? d_alpha * f.e : 0.0f;
         }
         if (!__any_sync(kFull, any)) continue;  // warp-uniform
         warp_cull::reduce_add(t, lane, term_of_lane, &sacc[0][0], l);
@@ -282,7 +269,7 @@ composite_bwd_kernel(const float* __restrict__ rec, long long s_total,
 
 // Launches B2 on `stream` over num_tiles tiles and returns
 // cudaGetLastError() (0 when the launch was accepted).  grad must be
-// zero-filled by the caller; ts * ts must be a multiple of 32.
+// zero-filled by the caller.
 extern "C" int composite_bwd(const float* rec, long long s_total, int nc,
                              const int* starts, const int* counts,
                              const int* ids, const float* logt,
@@ -290,12 +277,12 @@ extern "C" int composite_bwd(const float* rec, long long s_total, int nc,
                              int num_tiles, int ts, int tiles_x,
                              float min_alpha, float cs_floor, float* grad,
                              void* stream) {
-  const int npix = ts * ts;
-  if (npix % 32 != 0 || warp_cull::warps(ts) * 32 > kThreads) {
+  if (warp_cull::warps(ts) * 32 > kThreads) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_tiles > 0) {
     const dim3 grid(num_tiles);
+    // whole warps (the sweep's collectives)
     const dim3 block(warp_cull::warps(ts) * 32);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (nc == 3) {

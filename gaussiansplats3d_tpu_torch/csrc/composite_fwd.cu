@@ -5,39 +5,69 @@
 // (entry composite_tiles).  The Python side, its checks and its plain
 // PyTorch version live in render/cuda_rasterize.py.
 //
-// One block per tile, one thread per pixel (P = tile_size^2 <= 1024).  The
-// tile's depth-sorted pair window [start, start + count) is read in the same
-// floor-aligned 128-pair chunks as the Pallas kernel: chunk k of a tile
-// covers records [(start / 128 + k) * 128, +128), and lanes outside the
-// window are skipped.  Each chunk is staged in shared memory one record
-// field per thread (coalesced), then every thread composites its own pixel
-// front to back through the chunk in float32:
+// One block per tile (tile_size <= 32) of up to 512 threads, each holding
+// 2 pixels, laid out as B2's: a warp holds an 8 x 8 patch of the tile, lane
+// l the pixels (l % 8, l / 8) and (l % 8, l / 8 + 4) of it
+// (warp_cull::pixel); pixels past the tile's edge are not held.  The
+// tile's depth-sorted pair window [start, start + count) is read in the
+// same floor-aligned 128-pair chunks as the Pallas kernel: chunk k of a
+// tile covers records [(start / 128 + k) * 128, +128), and lanes outside
+// the window are skipped.  For each chunk:
 //
-//   alpha = opa * exp(-0.5 g),   g = a dx^2 + 2 b dx dy + c dy^2
-//   alpha = 0 where g > 8, alpha < min_alpha or |dx| > rx or |dy| > ry
-//   alpha = min(alpha, 0.999)
-//   w     = alpha * exp(chunk_log) * T        chunk_log += log1p(-alpha)
+// 1. the chunk is staged in shared memory one record field per thread
+//    (coalesced), and each warp culls it against the rectangle of its
+//    pixels (warp_cull.cuh): a 128-bit mask of the pairs that may pass the
+//    box test at one of its pixels;
+// 2. the warp walks the kept pairs in ascending order, and each lane
+//    composites both of its pixels front to back in float32 through each
+//    pair (gauss_fragment.cuh; its fields are read from shared memory once
+//    for the two):
 //
-// At the chunk boundary T *= exp(chunk_log) and log T += max(chunk_log,
-// cs_floor), the per-chunk clamp the backward replay relies on.  The tile
-// stops once no pixel has T > exit_t (__syncthreads_or), and exit_k records
-// how many chunks it composited, so exit_k and log T mean what they mean in
-// the JAX package.
+//      alpha = min(opa exp(-g / 2), 0.999), culled outside the box, at
+//              g > 8 or below min_alpha
+//      w     = alpha * excl * T,   excl *= 1 - alpha,
+//      chunk_log += log1p(-alpha)
+//
+//    with excl the product of 1 - alpha over the chunk's earlier pairs
+//    and T the transmittance before the chunk.  The cull drops only pairs
+//    that fail the box test at every pixel of the warp, and the walk keeps
+//    the order, so each pixel's chunk_log is the same ascending sum as a
+//    walk over the whole chunk: B2 replays it bit for bit where T dies;
+// 3. at the chunk boundary T *= exp(chunk_log) and log T += max(chunk_log,
+//    cs_floor), the per-chunk clamp the backward replay relies on.  The
+//    tile stops once no pixel it holds has T > exit_t (__syncthreads_or
+//    after the chunk; a warp whose pixels are all done composites on until
+//    the tile stops, as the Pallas kernel does), and exit_k records how
+//    many chunks it composited, so exit_k and log T mean what they mean in
+//    the JAX package.
+//
+// What bounds it on the H100: arithmetic, not memory (each record is read
+// once per chunk): the box tests, and exp/log1p of the visits in the box,
+// and the wait at each chunk's vote for the warp with the most kept
+// pairs.  The cull leaves the box tests of the pairs whose box reaches the
+// warp's patch (about a fifth of them at 2M splats, 1080p), one pair's
+// fields serve two pixels, the weight's running product spares an exp a
+// visit, and the whole tile stops at the exit.
 //
 // Records are field-major [NC + 8, S] float32: x, y, conic a, b, c, the NC
 // channels, opacity, rx, ry.  Outputs: chans [T, NC + 1, P] (row NC is the
-// composited alpha, the sum of the weights), logt [T, P], exit_k [T] int32.
+// composited alpha, the sum of the weights), logt [T, P], exit_k [T] int32,
+// with p = iy * ts + ix.
 
 #include <cuda_runtime.h>
 
+#include "gauss_fragment.cuh"
+#include "warp_cull.cuh"
+
 namespace {
 
-constexpr int kChunk = 128;
-constexpr float kGaussianCutoff = 8.0f;
-constexpr float kAlphaClamp = 0.999f;
+using gauss::kChunk;
+using warp_cull::kPix;                     // pixels a thread
+constexpr int kThreads = 32 * 32 / kPix;   // enough for a 32 x 32 tile
 
+// 2 blocks an SM, as B2 (PERF.md has ptxas's report)
 template <int NC>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kThreads, 2)
 composite_fwd_kernel(const float* __restrict__ rec, long long s_total,
                      const int* __restrict__ starts,
                      const int* __restrict__ counts,
@@ -49,29 +79,42 @@ composite_fwd_kernel(const float* __restrict__ rec, long long s_total,
   __shared__ float srec[kFields][kChunk];
 
   const int tile = blockIdx.x;
-  const int pix = threadIdx.x;
-  const int npix = blockDim.x;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int start = starts[tile];
   const int count = counts[tile];
   const int id = ids[tile];
   const int start_chunk = start / kChunk;
   const int num_chunks = (start % kChunk + count + kChunk - 1) / kChunk;
-  // GL pixel centre: y up, rows flipped at assembly.
-  const float px = static_cast<float>(id % tiles_x) * static_cast<float>(ts)
-                   + static_cast<float>(pix % ts) + 0.5f;
-  const float py = static_cast<float>(id / tiles_x) * static_cast<float>(ts)
-                   + static_cast<float>(pix / ts) + 0.5f;
+  const float tx = static_cast<float>(id % tiles_x) * static_cast<float>(ts);
+  const float ty = static_cast<float>(id / tiles_x) * static_cast<float>(ts);
+  const warp_cull::Rect rect = warp_cull::rect(tx, ty, ts, warp);
 
-  float acc[NC + 1];
+  bool has[kPix];
+  float px[kPix], py[kPix];
+  float acc[kPix][NC + 1];
+  float t[kPix], lt[kPix];
 #pragma unroll
-  for (int c = 0; c <= NC; ++c) acc[c] = 0.0f;
-  float t = 1.0f;
-  float lt = 0.0f;
+  for (int q = 0; q < kPix; ++q) {
+    int ix, iy;
+    warp_cull::pixel(ts, warp, q, lane, ix, iy);
+    has[q] = warp_cull::inside(ts, ix, iy);
+    // GL pixel centre: y up, rows flipped at assembly.
+    px[q] = tx + static_cast<float>(ix) + 0.5f;
+    py[q] = ty + static_cast<float>(iy) + 0.5f;
+#pragma unroll
+    for (int c = 0; c <= NC; ++c) acc[q][c] = 0.0f;
+    t[q] = 1.0f;
+    lt[q] = 0.0f;
+  }
+
   int k = 0;
   while (k < num_chunks) {
     const long long base = static_cast<long long>(start_chunk + k) * kChunk;
-    __syncthreads();  // every thread is done with the previous chunk
-    for (int i = pix; i < kFields * kChunk; i += npix) {
+    // every thread is done with the previous chunk: it has passed the vote
+    for (int i = tid; i < kFields * kChunk; i += nthreads) {
       const int f = i / kChunk;
       const int l = i - f * kChunk;
       const long long slot = base + l;
@@ -80,36 +123,64 @@ composite_fwd_kernel(const float* __restrict__ rec, long long s_total,
     __syncthreads();
     const int lo = max(static_cast<int>(start - base), 0);
     const int hi = min(static_cast<int>(start + count - base), kChunk);
-    float chunk_log = 0.0f;
-    for (int l = lo; l < hi; ++l) {
-      const float dx = px - srec[0][l];
-      const float dy = py - srec[1][l];
-      if (fabsf(dx) > srec[NC + 6][l] || fabsf(dy) > srec[NC + 7][l]) continue;
-      const float g = srec[2][l] * dx * dx + 2.0f * srec[3][l] * dx * dy
-                      + srec[4][l] * dy * dy;
-      if (g > kGaussianCutoff) continue;
-      float alpha = srec[NC + 5][l] * expf(-0.5f * g);
-      if (!(alpha >= min_alpha)) continue;
-      alpha = fminf(alpha, kAlphaClamp);
-      const float w = alpha * (expf(chunk_log) * t);
-      chunk_log += log1pf(-alpha);
+    const warp_cull::Mask kept = warp_cull::cull(
+        srec[0], srec[1], srec[NC + 6], srec[NC + 7], lo, hi, rect, lane);
+
+    // chunk_log: the sum of log(1 - alpha) over the chunk's pairs so far;
+    // excl: the product of 1 - alpha over them, T inside the chunk
+    float chunk_log[kPix], excl[kPix];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) acc[c] += w * srec[5 + c][l];
-      acc[NC] += w;
+    for (int q = 0; q < kPix; ++q) {
+      chunk_log[q] = 0.0f;
+      excl[q] = 1.0f;
     }
-    t *= expf(chunk_log);
-    lt += fmaxf(chunk_log, cs_floor);
+#pragma unroll 1
+    for (int j = 0; j < warp_cull::kWords; ++j) {
+      for (unsigned bits = warp_cull::word(kept, j); bits != 0;) {
+        const int l = j * 32 + warp_cull::pop_lowest(bits);
+#pragma unroll
+        for (int q = 0; q < kPix; ++q) {
+          gauss::Fragment f;
+          if (!has[q] ||
+              !gauss::fragment<NC>(&srec[0][l], px[q], py[q], min_alpha, f)) {
+            continue;
+          }
+          const float w = f.alpha * (excl[q] * t[q]);
+          excl[q] *= 1.0f - f.alpha;
+          chunk_log[q] += log1pf(-f.alpha);
+#pragma unroll
+          for (int c = 0; c < NC; ++c) acc[q][c] += w * srec[5 + c][l];
+          acc[q][NC] += w;
+        }
+      }
+    }
+    bool alive = false;
+#pragma unroll
+    for (int q = 0; q < kPix; ++q) {
+      t[q] *= expf(chunk_log[q]);
+      lt[q] += fmaxf(chunk_log[q], cs_floor);
+      alive |= has[q] && t[q] > exit_t;
+    }
     ++k;
-    if (!__syncthreads_or(t > exit_t)) break;
+    // every thread reaches the vote; a pixel past the tile's edge has none
+    if (!__syncthreads_or(alive)) break;
   }
 
-  const long long p = npix;
+  const long long p = static_cast<long long>(ts) * ts;
 #pragma unroll
-  for (int c = 0; c <= NC; ++c) {
-    chans[(static_cast<long long>(tile) * (NC + 1) + c) * p + pix] = acc[c];
+  for (int q = 0; q < kPix; ++q) {
+    if (!has[q]) continue;
+    int ix, iy;
+    warp_cull::pixel(ts, warp, q, lane, ix, iy);
+    const long long pp = iy * ts + ix;
+#pragma unroll
+    for (int c = 0; c <= NC; ++c) {
+      chans[(static_cast<long long>(tile) * (NC + 1) + c) * p + pp] =
+          acc[q][c];
+    }
+    logt[static_cast<long long>(tile) * p + pp] = lt[q];
   }
-  logt[static_cast<long long>(tile) * p + pix] = lt;
-  if (pix == 0) exit_k[tile] = k;
+  if (tid == 0) exit_k[tile] = k;
 }
 
 }  // namespace
@@ -122,9 +193,13 @@ extern "C" int composite_fwd(const float* rec, long long s_total, int nc,
                              int tiles_x, float min_alpha, float cs_floor,
                              float exit_t, float* chans, float* logt,
                              int* exit_k, void* stream) {
+  if (warp_cull::warps(ts) * 32 > kThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (num_tiles > 0) {
     const dim3 grid(num_tiles);
-    const dim3 block(ts * ts);
+    // whole warps (the cull's ballots)
+    const dim3 block(warp_cull::warps(ts) * 32);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (nc == 3) {
       composite_fwd_kernel<3><<<grid, block, 0, s>>>(

@@ -6,40 +6,55 @@
 // plain PyTorch version live in render/cuda_surfel.py.
 //
 // B1 (composite_fwd.cu) with the 2DGS ray-plane fragment
-// (surfel_fragment.cuh) in place of the Gaussian one.  One block per tile,
-// one thread per pixel (P = tile_size^2 <= 1024).  The tile's depth-sorted
-// window [start, start + count) is read in the Pallas kernel's
-// floor-aligned 128-pair chunks: chunk k covers records
+// (surfel_fragment.cuh) in place of the Gaussian one, in B1's layout: one
+// block per tile (tile_size <= 32) of up to 512 threads, each holding 2
+// pixels, a warp on an 8 x 8 patch of the tile (warp_cull::pixel), pixels
+// past the tile's edge masked, so B3 and B4 hold the same pixels.  The
+// tile's depth-sorted window [start, start + count) is read in the Pallas
+// kernel's floor-aligned 128-pair chunks: chunk k covers records
 // [(start / 128 + k) * 128, +128), lanes outside the window are skipped.
 // Each chunk is staged in shared memory one record field per thread
-// (coalesced), then every thread composites its own pixel front to back in
-// float32:
+// (coalesced); each warp culls it against the rectangle of its pixels
+// (warp_cull.cuh) and walks the kept pairs in ascending order, each lane
+// evaluating the fragment at its two pixels one after the other and
+// compositing front to back in float32:
 //
-//   w = alpha * exp(chunk_log) * T,   chunk_log += log1p(-alpha)
+//   w = alpha * excl * T,   excl *= 1 - alpha,   chunk_log += log1p(-alpha)
 //
-// At the chunk boundary T *= exp(chunk_log) and log T += max(chunk_log,
-// cs_floor), the per-chunk clamp B4 replays.  The tile stops once no pixel
-// has T > exit_t (__syncthreads_or); exit_k counts the chunks composited.
+// (excl the product of 1 - alpha over the chunk's earlier pairs).  The
+// cull drops only pairs that fail the box test at every pixel of the warp
+// and the walk keeps the order, so chunk_log is the ascending sum B4
+// replays bit for bit where T dies.  At the chunk boundary T *=
+// exp(chunk_log) and log T += max(chunk_log, cs_floor).  The tile stops
+// once no pixel it holds has T > exit_t (__syncthreads_or after the
+// chunk; no warp stops early); exit_k counts the chunks composited.
 //
-// What bounds it on the H100: every pair of a chunk is tested at every
-// pixel of the tile until the exit, and the fragment (a cross product, a
-// division, an exp) runs on the visits inside the box: arithmetic, not
-// memory (each record is read once per chunk).  Simple first: fast later.
+// What bounds it on the H100: arithmetic, not memory (each record is read
+// once per chunk): the box tests, and the fragment (a cross product, two
+// divisions, an exp) and log1p of the visits in the box, and the wait at
+// each chunk's vote for the warp with the most kept pairs.  The cull
+// leaves the box tests of the pairs whose box reaches the warp's patch,
+// one pair's fields, read from shared memory, serve two pixels, and the
+// weight's running product spares an exp a visit.
 //
 // Records are field-major [NC + 14, S] float32 (surfel_fragment.cuh).
 // Outputs: colors [T, P, NC] (the composited channels), logt [T, P],
-// exit_k [T] int32.
+// exit_k [T] int32, with p = iy * ts + ix.
 
 #include <cuda_runtime.h>
 
 #include "surfel_fragment.cuh"
+#include "warp_cull.cuh"
 
 namespace {
 
 using surfel::kChunk;
+using warp_cull::kPix;                     // pixels a thread
+constexpr int kThreads = 32 * 32 / kPix;   // enough for a 32 x 32 tile
 
+// 2 blocks an SM, as B4 (PERF.md has ptxas's report)
 template <int NC>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kThreads, 2)
 surfel_fwd_kernel(const float* __restrict__ rec, long long s_total,
                   const int* __restrict__ starts,
                   const int* __restrict__ counts,
@@ -51,29 +66,42 @@ surfel_fwd_kernel(const float* __restrict__ rec, long long s_total,
   __shared__ float srec[kFields][kChunk];
 
   const int tile = blockIdx.x;
-  const int pix = threadIdx.x;
-  const int npix = blockDim.x;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int start = starts[tile];
   const int count = counts[tile];
   const int id = ids[tile];
   const int start_chunk = start / kChunk;
   const int num_chunks = (start % kChunk + count + kChunk - 1) / kChunk;
-  // GL pixel centre: y up, rows flipped at assembly.
-  const float px = static_cast<float>(id % tiles_x) * static_cast<float>(ts)
-                   + static_cast<float>(pix % ts) + 0.5f;
-  const float py = static_cast<float>(id / tiles_x) * static_cast<float>(ts)
-                   + static_cast<float>(pix / ts) + 0.5f;
+  const float x0 = static_cast<float>(id % tiles_x) * static_cast<float>(ts);
+  const float y0 = static_cast<float>(id / tiles_x) * static_cast<float>(ts);
+  const warp_cull::Rect rect = warp_cull::rect(x0, y0, ts, warp);
 
-  float acc[NC];
+  bool has[kPix];
+  float px[kPix], py[kPix];
+  float acc[kPix][NC];
+  float t[kPix], lt[kPix];
 #pragma unroll
-  for (int c = 0; c < NC; ++c) acc[c] = 0.0f;
-  float t = 1.0f;
-  float lt = 0.0f;
+  for (int q = 0; q < kPix; ++q) {
+    int ix, iy;
+    warp_cull::pixel(ts, warp, q, lane, ix, iy);
+    has[q] = warp_cull::inside(ts, ix, iy);
+    // GL pixel centre: y up, rows flipped at assembly.
+    px[q] = x0 + static_cast<float>(ix) + 0.5f;
+    py[q] = y0 + static_cast<float>(iy) + 0.5f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[q][c] = 0.0f;
+    t[q] = 1.0f;
+    lt[q] = 0.0f;
+  }
+
   int k = 0;
   while (k < num_chunks) {
     const long long base = static_cast<long long>(start_chunk + k) * kChunk;
-    __syncthreads();  // every thread is done with the previous chunk
-    for (int i = pix; i < kFields * kChunk; i += npix) {
+    // every thread is done with the previous chunk: it has passed the vote
+    for (int i = tid; i < kFields * kChunk; i += nthreads) {
       const int f = i / kChunk;
       const int l = i - f * kChunk;
       const long long slot = base + l;
@@ -82,27 +110,60 @@ surfel_fwd_kernel(const float* __restrict__ rec, long long s_total,
     __syncthreads();
     const int lo = max(static_cast<int>(start - base), 0);
     const int hi = min(static_cast<int>(start + count - base), kChunk);
-    float chunk_log = 0.0f;
-    for (int l = lo; l < hi; ++l) {
-      surfel::Fragment f;
-      if (!surfel::fragment<NC>(&srec[0][l], px, py, min_alpha, f)) continue;
-      const float w = f.alpha * (expf(chunk_log) * t);
-      chunk_log += log1pf(-f.alpha);
+    const warp_cull::Mask kept = warp_cull::cull(
+        srec[9], srec[10], srec[12 + NC], srec[13 + NC], lo, hi, rect, lane);
+
+    // chunk_log: the sum of log(1 - alpha) over the chunk's pairs so far;
+    // excl: the product of 1 - alpha over them, T inside the chunk
+    float chunk_log[kPix], excl[kPix];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) acc[c] += w * srec[11 + c][l];
+    for (int q = 0; q < kPix; ++q) {
+      chunk_log[q] = 0.0f;
+      excl[q] = 1.0f;
     }
-    t *= expf(chunk_log);
-    lt += fmaxf(chunk_log, cs_floor);
+#pragma unroll 1
+    for (int j = 0; j < warp_cull::kWords; ++j) {
+      for (unsigned bits = warp_cull::word(kept, j); bits != 0;) {
+        const int l = j * 32 + warp_cull::pop_lowest(bits);
+#pragma unroll
+        for (int q = 0; q < kPix; ++q) {
+          surfel::Fragment f;
+          if (!has[q] ||
+              !surfel::fragment<NC>(&srec[0][l], px[q], py[q], min_alpha, f)) {
+            continue;
+          }
+          const float w = f.alpha * (excl[q] * t[q]);
+          excl[q] *= 1.0f - f.alpha;
+          chunk_log[q] += log1pf(-f.alpha);
+#pragma unroll
+          for (int c = 0; c < NC; ++c) acc[q][c] += w * srec[11 + c][l];
+        }
+      }
+    }
+    bool alive = false;
+#pragma unroll
+    for (int q = 0; q < kPix; ++q) {
+      t[q] *= expf(chunk_log[q]);
+      lt[q] += fmaxf(chunk_log[q], cs_floor);
+      alive |= has[q] && t[q] > exit_t;
+    }
     ++k;
-    if (!__syncthreads_or(t > exit_t)) break;
+    // every thread reaches the vote; a pixel past the tile's edge has none
+    if (!__syncthreads_or(alive)) break;
   }
 
-  const long long p = npix;
-  const long long at = static_cast<long long>(tile) * p + pix;
+  const long long p = static_cast<long long>(ts) * ts;
 #pragma unroll
-  for (int c = 0; c < NC; ++c) colors[at * NC + c] = acc[c];
-  logt[at] = lt;
-  if (pix == 0) exit_k[tile] = k;
+  for (int q = 0; q < kPix; ++q) {
+    if (!has[q]) continue;
+    int ix, iy;
+    warp_cull::pixel(ts, warp, q, lane, ix, iy);
+    const long long at = static_cast<long long>(tile) * p + iy * ts + ix;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) colors[at * NC + c] = acc[q][c];
+    logt[at] = lt[q];
+  }
+  if (tid == 0) exit_k[tile] = k;
 }
 
 }  // namespace
@@ -115,9 +176,13 @@ extern "C" int surfel_fwd(const float* rec, long long s_total, int nc,
                           float min_alpha, float cs_floor, float exit_t,
                           float* colors, float* logt, int* exit_k,
                           void* stream) {
+  if (warp_cull::warps(ts) * 32 > kThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (num_tiles > 0) {
     const dim3 grid(num_tiles);
-    const dim3 block(ts * ts);
+    // whole warps (the cull's ballots)
+    const dim3 block(warp_cull::warps(ts) * 32);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (nc == 3) {
       surfel_fwd_kernel<3><<<grid, block, 0, s>>>(

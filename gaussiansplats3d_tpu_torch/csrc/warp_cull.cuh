@@ -1,5 +1,7 @@
-// Per-warp pair cull and per-pair warp reduction, shared by the backward
-// compositors B2 (composite_bwd.cu) and B4 (surfel_bwd.cu) of the port.
+// Per-warp pair cull and pixel layout, shared by the compositors B1-B4 of
+// the port (composite_fwd.cu, composite_bwd.cu, surfel_fwd.cu,
+// surfel_bwd.cu), and the per-pair warp reduction of the backward ones
+// (B2, B4).
 //
 // The cull.  A warp holds an 8 x 8 patch of its tile (pixel()), whose
 // pixel centres lie in a rectangle (Rect).  Once a 128-pair chunk is

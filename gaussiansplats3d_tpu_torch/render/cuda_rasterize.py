@@ -6,34 +6,37 @@ of the JAX package's ``render/pallas_rasterize.py``).
 _composite_fwd`` (the Pallas kernel behind ``composite_tiles``).  The kernel
 source is ``csrc/composite_fwd.cu``; it computes what the Pallas kernel
 computes without its TPU mechanics (no DMA semaphores, no bf16-limb MXU
-scan, no tiles per step): one block per tile, one thread per pixel, the
-tile's records staged 128 pairs at a time in shared memory, and a float32
-front-to-back blend per pixel.  It keeps the Pallas kernel's floor-aligned
-128-pair chunk windows, its per-chunk ``_CS_FLOOR`` clamp on log T and its
-``max T <= 1e-4`` tile exit, so ``logt`` and ``exit_k`` are the residuals
-B2 replays from.
+scan, no tiles per step): one block per tile of up to 512 threads, each
+holding 2 pixels, a warp on an 8 x 8 patch of the tile
+(:data:`WARP_PATCH`); the tile's records are staged 128 pairs at a time in
+shared memory, each warp culls the chunk against the rectangle of its
+pixels (``csrc/warp_cull.cuh``; :func:`warp_keep` is its plain mirror) and
+walks the kept pairs in order, blending both pixels of a lane front to
+back in float32.  It keeps the Pallas kernel's floor-aligned 128-pair
+chunk windows, its per-chunk ``_CS_FLOOR`` clamp on log T and its ``max T
+<= 1e-4`` tile exit, so ``logt`` and ``exit_k`` are the residuals B2
+replays from.
 
 **B2 replaces** ``pallas_rasterize.py::_composite_bwd`` (kernel
-``_bwd_one_tile``).  Source ``csrc/composite_bwd.cu``: the same block and
-thread layout; chunks ``exit_k - 1 .. 0`` in reverse.  Each warp first
-culls the staged chunk against the rectangle of its pixels
-(``csrc/warp_cull.cuh``; :func:`warp_keep` is its plain mirror), then
-sweeps the kept pairs backwards with T taken from B1's residual log T
+``_bwd_one_tile``).  Source ``csrc/composite_bwd.cu``: B1's block and
+thread layout and cull; chunks ``exit_k - 1 .. 0`` in reverse.  Each warp
+sweeps its kept pairs backwards with T taken from B1's residual log T
 (B1's chunk sum is replayed, bit for bit, only in a warp where T may have
-died in the chunk); each pair's gradient terms are summed over the warp by
-one reduce-scatter and over the tile in shared memory, and written once to
-the pair's slot (a slot lies in one tile's window only, so no global
+died in the chunk: both kernels evaluate alpha with
+``csrc/gauss_fragment.cuh``, written with round-to-nearest intrinsics that
+nvcc cannot contract); each pair's gradient terms are summed over the warp
+by one reduce-scatter and over the tile in shared memory, and written once
+to the pair's slot (a slot lies in one tile's window only, so no global
 atomics and no read-modify-write of shared boundary chunks).
 
 **What bounds them on the H100.**  Each record is read once per tile that
-holds it (44-48 bytes a pair), while each pair is evaluated at every pixel
-of the tile until the tile exits (1024 evaluations at tile size 32):
-arithmetic, not memory, bounds both.  B1 answers that simply: the cheap
-support-box test rejects most pair-pixel evaluations before the ``exp``,
-records come from shared memory as broadcasts, the whole tile stops at the
-exit.  B2 walks only the pairs whose box reaches a warp's patch of 8 x 8
-pixels (512 threads of 2 pixels a tile, :data:`WARP_PATCH`), skips the
-replay of B1's sum where it can, and reduces a pair's terms in one pass.
+holds it (44-48 bytes a pair), while each pair may be evaluated at every
+pixel of the tile until the tile exits (1024 evaluations at tile size 32):
+arithmetic, not memory, bounds both.  Both walk only the pairs whose box
+reaches a warp's patch, read a pair's fields once for a lane's 2 pixels,
+and test the cheap support box before the ``exp``; B2 skips the replay of
+B1's sum where it can and reduces a pair's terms in one pass.  Any tile
+size up to 32 runs: pixels past the tile's edge are masked.
 
 **Plain versions** (:func:`composite_fwd_torch`,
 :func:`composite_bwd_torch`): the same functions in PyTorch, groups of
@@ -65,7 +68,7 @@ _CS_FLOOR = math.log(1e-37)
 _EXIT_T = 1e-4
 # Tiles per step of the plain version: [64, 128, P] float32 temporaries.
 _GROUP_SIZE = 64
-# The side of the square patch of pixels each warp of B2 and B4 holds
+# The side of the square patch of pixels each warp of B1-B4 holds
 # (csrc/warp_cull.cuh: kPatch); see warp_rects.
 WARP_PATCH = 8
 
@@ -106,8 +109,9 @@ def _check_inputs(records, starts, counts, ids, cfg: RenderConfig,
             raise ValueError(f"{name} must be contiguous")
     if not records.is_contiguous():
         raise ValueError("records must be contiguous")
-    if cfg.tile_size * cfg.tile_size > 1024:
-        raise ValueError("tile_size^2 must be <= 1024 (one thread a pixel)")
+    if cfg.tile_size > 32:
+        raise ValueError("tile_size must be <= 32 (16 warps of 8 x 8 "
+                         "pixels)")
     if s >= 2 ** 31:
         raise ValueError("records capacity must stay below 2^31")
 
@@ -178,7 +182,7 @@ def _tile_origins(tile_ids, cfg: RenderConfig):
 
 
 def warp_rects(cfg: RenderConfig):
-    """The rectangle of pixel centres each warp of a backward compositor
+    """The rectangle of pixel centres each warp of a compositor kernel
     holds (``csrc/warp_cull.cuh``'s ``rect``), as offsets from the tile's
     corner: ``[W, 4]`` float32 (x0, x1, y0, y1), one row per warp.  The
     warps tile the tile with :data:`WARP_PATCH`-square patches, row-major,
@@ -405,10 +409,6 @@ def composite_bwd_cuda(records, tile_starts, tile_counts, tile_ids, logt,
                       exit_k, gchans, cfg)
     if not records.is_cuda:
         raise ValueError("composite_bwd_cuda needs CUDA tensors")
-    p = cfg.tile_size * cfg.tile_size
-    if p % 32:
-        raise ValueError("B2 needs tile_size^2 to be a multiple of 32 "
-                         "(whole warps)")
     fn = _bwd_kernel()
     nf, s = records.shape
     t = tile_starts.shape[0]

@@ -15,26 +15,28 @@ and B2 with the 2DGS fragment in place of the Gaussian one:
             depth s . Tw.xy + Tw.z (Tw.z when the 2D term wins) < 0.2,
             alpha < min_alpha, or the pixel lies outside the rx/ry box
 
-B3: one block per tile, one thread per pixel, the tile's records staged 128
-at a time in shared memory, floor-aligned 128-pair chunk windows, T kept as
-a product, log T as the sum of ``max(chunk_log, _CS_FLOOR)``, the tile stops
-once every pixel's T is at most 1e-4.  Outputs colors ``[T, P, NC]``, logt
-``[T, P]`` and exit_k ``[T]``.  B4: chunks ``exit_k - 1 .. 0`` in reverse,
-each culled per warp (``csrc/warp_cull.cuh``, as B2), T_i in log space from
-B3's residual log T (B3's chunk sum replayed only where T may have died),
-the suffix of w cg, ``d_alpha = T cg - S / (1 - alpha) - glogt / (1 -
-alpha)`` (the image's alpha is ``1 - exp(logt)``, so glogt is nonzero
-whenever a loss sees the background), then the hand-derived transpose
-through the fragment to the 9 T entries, the center, the channels and the
-opacity, summed over the warp by one reduce-scatter and over the tile in
-shared memory.  Up to 512 threads a tile, each with 2 pixels, a warp on
-an 8 x 8 patch (``cuda_rasterize.WARP_PATCH``), as B2.
+B3, in B1's layout: one block per tile of up to 512 threads, each holding 2
+pixels, a warp on an 8 x 8 patch (``cuda_rasterize.WARP_PATCH``); the
+tile's records staged 128 at a time in shared memory, floor-aligned
+128-pair chunk windows, each chunk culled per warp (``csrc/warp_cull.cuh``)
+and the kept pairs walked in order, T kept as a product, log T as the sum
+of ``max(chunk_log, _CS_FLOOR)``, the tile stops once every pixel's T is
+at most 1e-4.  Outputs colors ``[T, P, NC]``, logt ``[T, P]`` and exit_k
+``[T]``.  B4: chunks ``exit_k - 1 .. 0`` in reverse, each culled per warp
+as in B3, T_i in log space from B3's residual log T (B3's chunk sum
+replayed only where T may have died), the suffix of w cg, ``d_alpha = T
+cg - S / (1 - alpha) - glogt / (1 - alpha)`` (the image's alpha is ``1 -
+exp(logt)``, so glogt is nonzero whenever a loss sees the background),
+then the hand-derived transpose through the fragment to the 9 T entries,
+the center, the channels and the opacity, summed over the warp by one
+reduce-scatter and over the tile in shared memory.  B3 and B4 hold the
+same pixels, as B1 and B2 do.
 
-**What bounds them on the H100.**  As B1/B2: each pair is evaluated at
-every pixel of its tile until the tile exits, and each record is read once
-per tile: arithmetic, not memory.  The box test comes first and rejects
-most visits before the fragment's division and ``exp``; B4 walks only the
-pairs whose box reaches a warp's patch.
+**What bounds them on the H100.**  As B1/B2: each pair may be evaluated
+at every pixel of its tile until the tile exits, and each record is read
+once per tile: arithmetic, not memory.  Both walk only the pairs whose box
+reaches a warp's patch, and the box test comes first and rejects most
+visits before the fragment's division and ``exp``.
 
 **Plain versions** (:func:`composite_surfel_fwd_torch`,
 :func:`composite_surfel_bwd_torch`): B3/B4's semantics (not the XLA

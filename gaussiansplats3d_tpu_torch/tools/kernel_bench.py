@@ -14,9 +14,10 @@ wrong colours on purpose; only their timings matter.
 
 **B5 replaces** ``gaussiansplats3d_tpu/tools/kernel_bench.py::
 build_variant`` (the Pallas kernel ``kernel`` launched by ``run``).  The
-kernel source is ``csrc/kernel_bench.cu``: B1's layout (one block per
-tile, one thread per pixel, 128-pair chunks staged in shared memory), the
-variant a template parameter.  ``full`` is the forward as it stood when
+kernel source is ``csrc/kernel_bench.cu``: the layout B1 had when the bench
+was written (one block per tile, one thread per pixel, 128-pair chunks
+staged in shared memory, no per-warp cull), the variant a template
+parameter.  ``full`` is the forward as it stood when
 the JAX tool was written, not B1: an exclusive PRODUCT prefix of 1 - alpha
 for the weights, T = max(T * prod, exp(-80)) at the end of each chunk, no
 log-T sum and no per-chunk floor; its outputs are colours, T itself and
@@ -27,8 +28,8 @@ here, ``log_scan``, the same log-space prefix in float32 with no limbs.
 It is worth having beside ``full`` because B1 accumulates T in log space:
 the two side by side show what that choice costs on the card.
 
-**What bounds it on the H100**: as B1, the arithmetic of the pair-pixel
-evaluations; it is a measuring tool and its variants keep B1's simple
+**What bounds it on the H100**: the arithmetic of the pair-pixel
+evaluations; it is a measuring tool and its variants keep that simple
 structure, so their differences are the pieces they remove.
 
 **Plain version** (:func:`composite_variant_torch`): the same functions in

@@ -323,25 +323,18 @@ def test_cuda_b2_matches_plain(cuda_device, depth):
 def test_cuda_b1_matches_plain(cuda_device, depth):
     _, cfg_t, pairs, records = jax_binned(n=3000, width=200, height=150,
                                           depth=depth, seed=33)
-    inputs = port_inputs(pairs, records, device=cuda_device)
-    before = cr.launches
-    chans, logt, exit_k = cr.composite_fwd(*inputs, cfg_t)
-    torch.cuda.synchronize()
-    assert cr.launches == before + 1
-    ref = cr.composite_fwd_torch(*inputs, cfg_t)
-    for a, b in ((chans, ref[0]), (logt, ref[1])):
-        p999, over = error_mass(a.cpu().numpy(), b.cpu().numpy())
-        assert p999 <= 1e-3 and over <= 1e-3
-    assert float((exit_k == ref[2]).float().mean()) >= 0.99
+    assert_cuda_b1_matches_plain(
+        cfg_t, port_inputs(pairs, records, device=cuda_device))
 
 
-@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("tile", [12, 16, 20, 32])
 def test_warp_cull_mirror_keeps_every_box_hit(tile):
-    """The plain mirror of B2's per-warp cull (warp_keep over B2's warp
-    rectangles) keeps every pair that passes the per-pixel box test at
-    some pixel of the warp, on pairs whose centres or box edges sit within
-    1e-3 px of a warp rectangle's edge, half of them with boxes under a
-    pixel; it drops some; kept_pair_warps counts what it keeps."""
+    """The plain mirror of B1's and B2's per-warp cull (warp_keep over
+    their warp rectangles) keeps every pair that passes the per-pixel box
+    test at some pixel of the warp, on pairs whose centres or box edges sit
+    within 1e-3 px of a warp rectangle's edge, half of them with boxes
+    under a pixel, also where a tile's edge cuts the warps' patches; it
+    drops some; kept_pair_warps counts what it keeps."""
     cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile)
     hit, keep = cull_case(cfg, seed=40 + tile)
     assert bool(hit.any()) and bool((~keep).any())
@@ -352,12 +345,13 @@ def test_warp_cull_mirror_keeps_every_box_hit(tile):
                        keep.sum(dim=1))
 
 
-@pytest.mark.parametrize("tile", [8, 16, 24, 32])
+@pytest.mark.parametrize("tile", [8, 12, 16, 20, 24, 32])
 def test_warp_rects_tile_the_tile(tile):
-    """warp_rects, the mirror of B2's and B4's pixel layout
-    (csrc/warp_cull.cuh), covers every pixel centre of the tile in exactly
-    one warp's rectangle, with as many warps as the kernels launch: 8 x 8
-    patches, at most 16 warps (512 threads) at tile 32."""
+    """warp_rects, the mirror of B1-B4's pixel layout (csrc/warp_cull.cuh),
+    covers every pixel centre of the tile in exactly one warp's rectangle,
+    with as many warps as the kernels launch: 8 x 8 patches, cut at the
+    tile's edge where the side is no multiple of 8, at most 16 warps (512
+    threads) at tile 32."""
     cfg = gt.RenderConfig(width=tile, height=tile, tile_size=tile)
     rects = cr.warp_rects(cfg)
     across = -(-tile // cr.WARP_PATCH)
@@ -412,6 +406,45 @@ def edge_records(cfg, seed, device):
             torch.arange(cfg.num_tiles, dtype=torch.int32, device=device))
 
 
+def assert_cuda_b1_matches_plain(cfg, inputs):
+    """B1 launched once on the card against the plain B1: chans and log T
+    p99.9 |d| <= 1e-3 and <= 0.1% over 1e-2, exit_k equal on >= 99% of
+    tiles; some pixel composited something."""
+    before = cr.launches
+    chans, logt, exit_k = cr.composite_fwd(*inputs, cfg)
+    torch.cuda.synchronize()
+    assert cr.launches == before + 1
+    ref = cr.composite_fwd_torch(*inputs, cfg)
+    for a, b in ((chans, ref[0]), (logt, ref[1])):
+        p999, over = error_mass(a.cpu().numpy(), b.cpu().numpy())
+        assert p999 <= 1e-3 and over <= 1e-3
+    assert float((exit_k == ref[2]).float().mean()) >= 0.99
+    assert float(ref[0][:, -1].max()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("big", [0.0, 0.05])
+@pytest.mark.parametrize("tile", [12, 16, 20, 32])
+def test_cuda_b1_matches_plain_at_tile_sizes(cuda_device, tile, big):
+    """B1 against its plain version at tiles 12, 16, 20 and 32 (warp
+    patches cut at the tile's edge at 12 and 20), on a scene and on the
+    same scene with 5% of the splats scaled x20."""
+    cfg, inputs = port_pairs(cuda_device, tile, seed=47, big=big)
+    rx = inputs[0][9][:int(inputs[2].long().sum())]
+    assert float(rx.max()) > (2 * tile if big else 0.0)
+    assert_cuda_b1_matches_plain(cfg, inputs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [12, 16, 32])
+def test_cuda_b1_pairs_at_warp_edges(cuda_device, tile):
+    """B1 against its plain version on hand-built records whose pairs sit
+    just inside and just outside a warp's rectangle (edge_records)."""
+    cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile)
+    assert_cuda_b1_matches_plain(cfg, edge_records(cfg, 48 + tile,
+                                                   cuda_device))
+
+
 def assert_cuda_b2_matches_plain(cfg, inputs, device, seed):
     """B1, then B2 with a random cotangent, launched once on the card,
     against the plain B2: per row normalised p99.9 <= 1e-3 and <= 0.1%
@@ -431,11 +464,12 @@ def assert_cuda_b2_matches_plain(cfg, inputs, device, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("big", [0.0, 0.05])
-@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("tile", [12, 16, 20, 32])
 def test_cuda_b2_matches_plain_at_tile_sizes(cuda_device, tile, big):
-    """B2 against its plain version at tiles 16 and 32, on a scene and on
-    the same scene with 5% of the splats scaled x20, whose boxes span many
-    warps and tiles."""
+    """B2 against its plain version at tiles 12, 16, 20 and 32 (tiles whose
+    square is no multiple of 32 included), on a scene and on the same
+    scene with 5% of the splats scaled x20, whose boxes span many warps
+    and tiles."""
     cfg, inputs = port_pairs(cuda_device, tile, seed=42, big=big)
     rx = inputs[0][9][:int(inputs[2].long().sum())]
     assert float(rx.max()) > (2 * tile if big else 0.0)
@@ -443,7 +477,7 @@ def test_cuda_b2_matches_plain_at_tile_sizes(cuda_device, tile, big):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("tile", [12, 16, 32])
 def test_cuda_b2_pairs_at_warp_edges(cuda_device, tile):
     """B2 against its plain version on hand-built records whose pairs sit
     just inside and just outside a warp's rectangle (edge_records)."""
@@ -482,3 +516,29 @@ def test_build_names_libraries_by_source_and_needs_nvcc(monkeypatch):
     monkeypatch.setattr(_build.os.path, "isfile", lambda path: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.nvcc_path()
+
+
+def test_build_hashes_the_gauss_fragment_header(monkeypatch):
+    """B1 and both passes of B2 evaluate alpha with one header,
+    csrc/gauss_fragment.cuh (B2 replays B1's chunk sums bit for bit where
+    T dies): both sources include it, and the library names hash it, so an
+    edited header renames both libraries and is rebuilt, never loaded
+    stale; a library that does not include it keeps its name."""
+    from gaussiansplats3d_tpu_torch import _build
+
+    header = _build.CSRC / "gauss_fragment.cuh"
+    names = {}
+    for k in ("composite_fwd", "composite_bwd"):
+        assert _build._local_headers(_build.CSRC / f"{k}.cu") == [
+            header, _build.CSRC / "warp_cull.cuh"]
+        names[k] = _build._paths(k)[1].name
+    surfel = _build._paths("surfel_fwd")[1].name
+    orig = _build.Path.read_bytes
+
+    def edited(self):
+        data = orig(self)
+        return data + b"// edit" if self == header else data
+
+    monkeypatch.setattr(_build.Path, "read_bytes", edited)
+    assert all(_build._paths(k)[1].name != v for k, v in names.items())
+    assert _build._paths("surfel_fwd")[1].name == surfel

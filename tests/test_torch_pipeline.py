@@ -118,11 +118,25 @@ def test_render_gradients_match_jax(request, backend, prec, depth):
     n, size = (300, 64) if backend == "pallas" else (800, W)
     if backend == "pallas":
         request.getfixturevalue("interpret_pallas")
+    _assert_gradients_match_jax(n, dict(
+        width=size, height=size, sh_degree=1, record_precision=prec,
+        return_depth=depth), backend, depth)
+
+
+def test_render_gradients_match_jax_at_tile_12():
+    """The same at tile size 12, whose 144 pixels are no whole number of
+    warps and whose 8 x 8 warp patches are cut at the tile's edge: the
+    plain B2 on the CPU, against jax.grad of backend="jax", under the same
+    bar (the size a CUDA device's B2 now accepts too)."""
+    _assert_gradients_match_jax(800, dict(
+        width=W, height=H, tile_size=12, sh_degree=1,
+        record_precision="f32"), "jax", False)
+
+
+def _assert_gradients_match_jax(n, kw, backend, depth):
     s_j, _ = both_scenes(scene_arrays(n, sh_degree=1, seed=45))
     cam_j, cam_t = both_cameras(gs.Camera.look_at(
         (2.5, 1.5, 2.5), (0, 0, 0), fov_y_deg=60, aspect=1.0))
-    kw = dict(width=size, height=size, sh_degree=1, record_precision=prec,
-              return_depth=depth)
     cfg_j = gs.RenderConfig(backend=backend, **kw)
     g_j = jax.jit(jax.grad(lambda s: _image_loss(gs.render(s, cam_j, cfg_j),
                                                  depth)))(s_j)
@@ -146,11 +160,24 @@ def test_render_gradients_match_jax(request, backend, prec, depth):
 def test_cuda_render_gradients_match_cpu(cuda_device):
     """A backward through render() on the card launches B1 and B2 once
     each and gives the CPU render's gradients."""
+    _assert_cuda_gradients_match_cpu(cuda_device, gt.RenderConfig(
+        width=256, height=192, sh_degree=1, record_precision="f32",
+        return_depth=True))
+
+
+@pytest.mark.cuda
+def test_cuda_render_gradients_match_cpu_at_tile_12(cuda_device):
+    """The same training step at tile size 12 (warp patches cut at the
+    tile's edge), which B2 once refused on the card."""
+    _assert_cuda_gradients_match_cpu(cuda_device, gt.RenderConfig(
+        width=256, height=192, tile_size=12, sh_degree=1,
+        record_precision="f32", return_depth=True))
+
+
+def _assert_cuda_gradients_match_cpu(cuda_device, cfg):
     arrays = scene_arrays(3000, sh_degree=1, seed=46)
     cam_j = gs.Camera.look_at((2.5, 1.5, 2.5), (0, 0, 0), fov_y_deg=60,
                               aspect=4 / 3)
-    cfg = gt.RenderConfig(width=256, height=192, sh_degree=1,
-                          record_precision="f32", return_depth=True)
     grads = []
     for dev in ("cpu", cuda_device):
         s = gt.SplatData.from_numpy(*arrays, device=dev)

@@ -252,13 +252,15 @@ def test_wrapper_cpu_path_autograd_and_checks():
 
 
 def test_build_hashes_the_fragment_header():
-    """B3 and B4 share csrc/surfel_fragment.cuh: the library names hash it,
-    so an edited header is rebuilt, never loaded stale."""
+    """B3 and B4 share csrc/surfel_fragment.cuh (and warp_cull.cuh): the
+    library names hash it, so an edited header is rebuilt, never loaded
+    stale."""
     assert {"surfel_fwd", "surfel_bwd"} <= set(_build.KERNELS)
     header = _build.CSRC / "surfel_fragment.cuh"
+    cull = _build.CSRC / "warp_cull.cuh"
     names = {}
-    for k, headers in (("surfel_fwd", [header]),
-                       ("surfel_bwd", [header, _build.CSRC / "warp_cull.cuh"])):
+    for k, headers in (("surfel_fwd", [header, cull]),
+                       ("surfel_bwd", [header, cull])):
         assert _build._local_headers(_build.CSRC / f"{k}.cu") == headers
         names[k] = _build._paths(k)[1].name
     orig = _build.Path.read_bytes
@@ -276,13 +278,14 @@ def test_build_hashes_the_fragment_header():
         _build.Path.read_bytes = orig
 
 
-@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("tile", [12, 16, 20, 32])
 def test_warp_cull_mirror_keeps_every_box_hit(tile):
-    """The plain mirror of B4's per-warp cull (warp_keep over B4's warp
-    rectangles) keeps every pair that passes the per-pixel box test at
-    some pixel of the warp, on pairs whose centres or box edges sit within
-    1e-3 px of a warp rectangle's edge, half of them with boxes under a
-    pixel; and it drops some."""
+    """The plain mirror of B3's and B4's per-warp cull (warp_keep over
+    their warp rectangles) keeps every pair that passes the per-pixel box
+    test at some pixel of the warp, on pairs whose centres or box edges sit
+    within 1e-3 px of a warp rectangle's edge, half of them with boxes
+    under a pixel, also where a tile's edge cuts the warps' patches; and
+    it drops some."""
     cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile,
                           render_mode_2d=True)
     hit, keep = cull_case(cfg, seed=70 + tile)
@@ -330,6 +333,46 @@ def edge_surfels(cfg, seed, device):
             torch.arange(cfg.num_tiles, dtype=torch.int32, device=device))
 
 
+def assert_cuda_b3_matches_plain(cfg, inputs):
+    """B3 launched once on the card against the plain B3: colors and log T
+    p99.9 |d| <= 1e-3 and <= 0.1% over 1e-2, exit_k equal on >= 99% of
+    tiles; some pixel composited something."""
+    before = cs.launches
+    col, logt, exit_k = cs.composite_surfel_fwd(*inputs, cfg)
+    torch.cuda.synchronize()
+    assert cs.launches == before + 1
+    ref = cs.composite_surfel_fwd_torch(*inputs, cfg)
+    for a, b in ((col, ref[0]), (logt, ref[1])):
+        p999, over = error_mass(a.cpu().numpy(), b.cpu().numpy())
+        assert p999 <= 1e-3 and over <= 1e-3
+    assert float((exit_k == ref[2]).float().mean()) >= 0.99
+    assert float(ref[1].min()) < 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("big", [0.0, 0.05])
+@pytest.mark.parametrize("tile", [12, 16, 20, 32])
+def test_cuda_b3_matches_plain_at_tile_sizes(cuda_device, tile, big):
+    """B3 against its plain version at tiles 12, 16, 20 and 32 (warp
+    patches cut at the tile's edge at 12 and 20), on a scene and on the
+    same scene with 5% of the splats scaled x20."""
+    cfg, inputs = port_surfels(cuda_device, tile, seed=76, big=big)
+    rx = inputs[0][15][:int(inputs[2].long().sum())]
+    assert float(rx.max()) > (2 * tile if big else 0.0)
+    assert_cuda_b3_matches_plain(cfg, inputs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [12, 16, 32])
+def test_cuda_b3_pairs_at_warp_edges(cuda_device, tile):
+    """B3 against its plain version on hand-built surfels that sit just
+    inside and just outside a warp's rectangle (edge_surfels)."""
+    cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile,
+                          render_mode_2d=True)
+    assert_cuda_b3_matches_plain(cfg, edge_surfels(cfg, 77 + tile,
+                                                   cuda_device))
+
+
 def assert_cuda_b4_matches_plain(cfg, inputs, device, seed):
     """B3, then B4 with a random gcol and glogt, launched once on the
     card, against the plain B4: per row normalised p99.9 <= 1e-3 and <=
@@ -353,11 +396,11 @@ def assert_cuda_b4_matches_plain(cfg, inputs, device, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("big", [0.0, 0.05])
-@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("tile", [12, 16, 20, 32])
 def test_cuda_b4_matches_plain_at_tile_sizes(cuda_device, tile, big):
-    """B4 against its plain version at tiles 16 and 32, on a scene and on
-    the same scene with 5% of the splats scaled x20, whose boxes span many
-    warps and tiles."""
+    """B4 against its plain version at tiles 12, 16, 20 and 32, on a scene
+    and on the same scene with 5% of the splats scaled x20, whose boxes
+    span many warps and tiles."""
     cfg, inputs = port_surfels(cuda_device, tile, seed=71, big=big)
     rx = inputs[0][15][:int(inputs[2].long().sum())]
     assert float(rx.max()) > (2 * tile if big else 0.0)
@@ -365,7 +408,7 @@ def test_cuda_b4_matches_plain_at_tile_sizes(cuda_device, tile, big):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("tile", [12, 16, 32])
 def test_cuda_b4_pairs_at_warp_edges(cuda_device, tile):
     """B4 against its plain version on hand-built surfels that sit just
     inside and just outside a warp's rectangle (edge_surfels)."""
