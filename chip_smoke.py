@@ -61,7 +61,29 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    just after: kernel_bench.main() at its default size (2M, SH1, 1080p:
    the ablation, then B1 and B2 alone), profile_stages.main() (same
    scene), gpu_parity.main() (must return 0) and bench_configs' accept1-3
-   at full size (the reference-bytes runs at N_REF_BYTES splats).
+   at full size (the reference-bytes runs at N_REF_BYTES splats);
+10. the viewer slice at BASELINE.json config 5's shape (multi-scene dynamic
+   composition, 4K stereo) on one card: a Viewer at 3840x2160, SH1, over
+   three scenes, 3.5M splats (S0 the 2M scene above, in memory; S1 1M
+   seeded splats written by save_ksplat, level 1, and added by path with a
+   position, rotation and scale; S2 500k seeded splats written as a binary
+   INRIA .ply and streamed in by add_splat_scene_progressive, with partial
+   frames); every frame against a direct render() (render_2d_tiled in 2D)
+   of the viewer's own concatenated splats with the same transforms, scene
+   indices, opacities, visibility and fade, by error mass; the counters
+   zeroed just before each viewer step and read just after: B1 once a 3D
+   frame, twice a stereo pair, B3 once a 2D frame, nothing on an OnChange
+   repeat or a sub-epsilon move or under RenderMode.Never; the reveal fade
+   run to its end on the frame host arithmetic predicts; dynamic changes
+   of S1's position, S2's opacity and S0's visibility; picking through
+   the image centre (sphere and ellipsoid) against the port's raycaster
+   on CPU copies; render_scene (B1 once a frame) and create_ksplat (bytes
+   equal to save_ksplat's); B1 and B3 against their plain versions, with
+   their times and bounds, on the records of a 4K viewer frame (3D and
+   2D) and of render_scene's 1280x720 frame; the viewer's overhead over
+   render(), the stereo pair, load-to-first-frame, the progressive load's
+   snapshots and times, picking and peak memory.  The kernels line's
+   launches of each viewer path are the sums of the counters' readings.
 
 Prints a {"kernels": [...]} line, and last {"ok": true, "device": ...}.
 It has no CPU mode: without a CUDA device it exits 1.
@@ -74,6 +96,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -162,6 +185,22 @@ OPS_B5_CHUNK = 2
 # Splats of bench_configs' reference-bytes runs here: the reference writer
 # is per-splat Python (host time, ~75 us a splat), so 1M would take minutes
 N_REF_BYTES = 200_000
+# Phase 10, the viewer slice, at BASELINE.json config 5's shape (multi-scene
+# dynamic composition, 4K stereo) on one card: S0 is the 2M scene above,
+# S1 a 1M .ksplat added by path, S2 a 500k binary .ply loaded progressively.
+VIEW_W, VIEW_H = 3840, 2160
+N_S1 = 1_000_000
+N_S2 = 500_000
+# S2 renders a partial frame at its first snapshot and every this many after
+PARTIAL_EVERY = 10
+# The reveal fade's rate multiplier: at 0.012 x 12.5 a frame the fade
+# completes (1 - (1 - 0.15)^k > 0.99) within 29 frames of a final build,
+# inside the 40 frames the phase allows it.
+FADE_MULTIPLIER = 12.5
+MAX_FADE_FRAMES = 40
+# OnChange gating: a camera move under the reference's 1e-4 epsilon reuses
+# the cached frame, one over it renders.
+SMALL_MOVE, LARGE_MOVE = 5e-5, 1e-3
 
 
 def log(*a):
@@ -414,13 +453,16 @@ def compare_grad_rows(kernel, name, grad, ref):
     return rows
 
 
-def check_b1(cr, splats, cam, name, cfg):
+def check_b1(cr, splats, cam, name, cfg, scene=None):
     """B1 against its plain version on the records of one main-path
-    configuration; its time, the plain version's time and the bound."""
+    configuration; its time, the plain version's time and the bound.
+    ``scene``: project_splats' scene inputs (transforms, scene indices,
+    opacities, visibility, fade), as a viewer frame passes them."""
     from gaussiansplats3d_tpu_torch.render.binning import bin_sort_records
     from gaussiansplats3d_tpu_torch.render.projection import project_splats
     with torch.no_grad():
-        pairs = bin_sort_records(project_splats(splats, cam, cfg), cfg)
+        pairs = bin_sort_records(
+            project_splats(splats, cam, cfg, **(scene or {})), cfg)
     dev = splats.device
     ids = torch.arange(cfg.num_tiles, dtype=torch.int32, device=dev)
     args = (pairs.records, pairs.tile_starts, pairs.tile_counts, ids, cfg)
@@ -1024,19 +1066,15 @@ def small_correctness(gt, device):
 
 # --- the 2DGS surfel mode ----------------------------------------------------
 
-def subset(gt, splats, n):
-    """The first n splats of a scene."""
-    return gt.SplatData(*(getattr(splats, f)[:n] for f in FIELDS))
-
-
-def surfel_inputs(splats, cam, cfg):
+def surfel_inputs(splats, cam, cfg, scene=None):
     """The surfel compositor's inputs on the port's own projection and
-    binning: ((records, starts, counts, tile ids), overflow)."""
+    binning: ((records, starts, counts, tile ids), overflow).  ``scene``:
+    project_surfels' scene inputs, as a 2D viewer frame passes them."""
     from gaussiansplats3d_tpu_torch.render.surfel import (bin_sort_surfels,
                                                           project_surfels)
     with torch.no_grad():
         recs, starts, counts, _, overflow = bin_sort_surfels(
-            project_surfels(splats, cam, cfg), cfg)
+            project_surfels(splats, cam, cfg, **(scene or {})), cfg)
     ids = torch.arange(cfg.num_tiles, dtype=torch.int32,
                        device=splats.device)
     return (recs, starts, counts, ids), int(overflow)
@@ -1146,10 +1184,11 @@ def surfel_cotangents(colors, logt, cfg):
     return gc.contiguous(), gl.contiguous()
 
 
-def check_b3(cs, splats, cam, name, cfg):
+def check_b3(cs, splats, cam, name, cfg, scene=None):
     """B3 against its plain version on the surfel records of one 2D
-    configuration; its time, the plain version's time and the bound."""
-    args, overflow = surfel_inputs(splats, cam, cfg)
+    configuration; its time, the plain version's time and the bound.
+    ``scene`` as surfel_inputs takes it."""
+    args, overflow = surfel_inputs(splats, cam, cfg, scene)
     colors, logt, exit_k = cs.composite_surfel_fwd_cuda(*args, cfg)
     torch.cuda.synchronize()
     ref = cs.composite_surfel_fwd_torch(*args, cfg)
@@ -1228,17 +1267,18 @@ def check_b4(cs, splats, cam, name, cfg):
             "operations": ops, "bytes": nbytes}
 
 
-def configs_2d(gt, splats, cfg):
+def configs_2d(splats, cfg):
     """The 2D kernel checks' configurations: bench.py's scene in
     render_mode_2d with the default record precision, and with the depth
     channel (NC = 4) on the first N_DEPTH_2D splats."""
+    from gaussiansplats3d_tpu_torch.io.optimize import take_splats
     c2d = cfg.replace(render_mode_2d=True)
     return [("2d-mixed", c2d, splats),
             ("2d-depth", c2d.replace(return_depth=True),
-             subset(gt, splats, N_DEPTH_2D))]
+             take_splats(splats, slice(0, N_DEPTH_2D)))]
 
 
-def check_b3_b4_all(gt, cs, splats, cam, cfg):
+def check_b3_b4_all(cs, splats, cam, cfg):
     """check_b3 and check_b4 on both 2D configurations.  Each kernels-line
     entry takes its times and bound from the 2d-mixed configuration and
     its max_abs_err from the worst one."""
@@ -1247,7 +1287,7 @@ def check_b3_b4_all(gt, cs, splats, cam, cfg):
             ("surfel_fwd", check_b3, "surfel_fwd.cu", 130),
             ("surfel_bwd", check_b4, "surfel_bwd.cu", 232)):
         per_config = {n: check(cs, s, cam, n, c)
-                      for n, c, s in configs_2d(gt, splats, cfg)}
+                      for n, c, s in configs_2d(splats, cfg)}
         main = per_config["2d-mixed"]
         entries.append({
             "name": name, "route": "cuda",
@@ -1645,6 +1685,550 @@ def tools_slice(cr, cs, kb):
     return out
 
 
+def viewer_splats(gt, n, seed, device):
+    """n random splats from `seed`, SH1, in [-1.5, 1.5]^3 at bench.py's
+    scan-like sizes."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    s = gt.random_splats(gen, n, sh_degree=SH_DEGREE, extent=1.5,
+                         device=device)
+    s.scales = s.scales * 0.15
+    return s
+
+
+def frame_fade(v):
+    """The fade state the viewer's last frame drew: None once the fade is
+    complete or in Instant mode."""
+    from gaussiansplats3d_tpu_torch.viewer import SceneRevealMode
+    vr = v.visible_region
+    if vr.complete or v.scene_reveal_mode == SceneRevealMode.Instant:
+        return None
+    return vr.center.copy(), float(vr.fade_start_radius)
+
+
+def direct_inputs(v):
+    """What the viewer's frame draws, built by this script from its scenes:
+    the viewer's own concatenated splats, each scene's transform composed
+    from its position, rotation and scale, the scene index of every splat,
+    the opacities and visibility, and the fade."""
+    from gaussiansplats3d_tpu_torch.core import math3d
+    splats, _ = v._concat()
+    scenes = [v.get_splat_scene(i) for i in range(v.scene_count)]
+    dev = v.device
+    sizes = torch.tensor([s.num_splats for s in scenes], device=dev)
+    return splats, {
+        "transforms": torch.stack([math3d.compose_transform(
+            s.position, s.quaternion, s.scale, device="cpu")
+            for s in scenes]).to(dev),
+        "scene_indices": torch.repeat_interleave(
+            torch.arange(len(scenes), dtype=torch.int32, device=dev), sizes),
+        "scene_opacities": torch.tensor([s.opacity for s in scenes],
+                                        device=dev),
+        "scene_visibility": torch.tensor([s.visible for s in scenes],
+                                         device=dev),
+        "fade_params": frame_fade(v)}
+
+
+def direct_render(gt, v, cam):
+    """render() (render_2d_tiled in 2D) of direct_inputs at `cam`."""
+    from gaussiansplats3d_tpu_torch.render import pipeline
+    splats, kw = direct_inputs(v)
+    if v.config.render_mode_2d:
+        kw.pop("fade_params")
+        return pipeline.render_2d_tiled(splats, cam, v.config, **kw)
+    return gt.render(splats, cam, v.config, **kw)
+
+
+class ViewerChecks:
+    """Every phase-10 frame against its direct render; the largest
+    difference seen."""
+
+    def __init__(self, gt):
+        self.gt = gt
+        self.frames = 0
+        self.max_abs = 0.0
+        self.worst_p999 = 0.0
+
+    def check(self, name, v, out, cam=None):
+        cam = cam if cam is not None else v._current_camera(None)
+        with torch.no_grad():
+            ref = direct_render(self.gt, v, cam)
+        for key in ("color", "alpha"):
+            mx, p999, over = error_mass(out[key], ref[key])
+            self.max_abs = max(self.max_abs, mx)
+            self.worst_p999 = max(self.worst_p999, p999)
+            if not (p999 <= BAR_P999["chans"] and over <= BAR_OVER):
+                raise AssertionError(f"viewer frame {name} differs from its "
+                                     f"direct render in {key}: max {mx} "
+                                     f"p99.9 {p999} over {over}")
+        self.frames += 1
+        return ref
+
+
+# (B1, B2, B3, B4, B5) launches of one 3D viewer frame, a stereo pair and
+# one 2D viewer frame
+ONE_3D = (1, 0, 0, 0, 0)
+PAIR_3D = (2, 0, 0, 0, 0)
+ONE_2D = (0, 0, 1, 0, 0)
+
+
+class Tally:
+    """The counters of B1-B5 around each viewer step: zeroed just before,
+    read (after a synchronize) just after, and the readings summed per
+    viewer path for the kernels line."""
+
+    def __init__(self, cr, cs, kb):
+        self.cr, self.cs, self.kb = cr, cs, kb
+        self.by_path = {}
+
+    def add(self, path, launches):
+        old = self.by_path.get(path, (0,) * 5)
+        self.by_path[path] = tuple(a + b for a, b in zip(old, launches))
+
+    def __call__(self, path, fn, expect, name):
+        """fn(), its launches added to `path`; raises unless (B1, ..., B5)
+        == expect."""
+        reset_all(self.cr, self.cs)
+        self.kb.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = all_launches(self.cr, self.cs, self.kb)
+        self.add(path, launches)
+        if launches != expect:
+            raise AssertionError(f"{name}: (B1, B2, B3, B4, B5) launched "
+                                 f"{launches}, expected {expect}")
+        return out
+
+
+def wall_ms(fn):
+    """(fn(), host milliseconds until it and the device are done)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def max_diff(a, b):
+    return float((a["color"] - b["color"]).abs().max())
+
+
+def predicted_fade_frames(vr):
+    """Frames until the reveal fade completes from its current state, by
+    host arithmetic on fade.py's constants (a final build: the fast
+    rate)."""
+    from gaussiansplats3d_tpu_torch.viewer import fade
+    rate = fade.SCENE_FADEIN_RATE_FAST * vr.fade_in_rate_multiplier
+    start, k = vr.fade_start_radius, 0
+    while True:
+        k += 1
+        start += (vr.radius - start) * rate
+        if start / vr.buffer_radius > fade.FADE_COMPLETE_PERCENT:
+            return k
+
+
+def load_scenes(gt, tally, v, s0, tmp, chk):
+    """S0 in memory, S1 by path, S2 progressively; the load timings and
+    S2's partial frames."""
+    from gaussiansplats3d_tpu_torch import io as gio
+    res = {}
+    v.add_splat_scene(s0)
+    out = tally("viewer_3d", v.render, ONE_3D, "viewer S0 frame")
+    chk.check("S0", v, out)
+
+    s1 = viewer_splats(gt, N_S1, SEED + 1, v.device)
+    s1_path = os.path.join(tmp, "s1.ksplat")
+    t0 = time.perf_counter()
+    gio.save_ksplat(s1, s1_path, compression_level=1)
+    res["s1_write_s"] = time.perf_counter() - t0
+    del s1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v.add_splat_scene(s1_path, position=(3.2, 0.0, 0.0),
+                      rotation=(0.0, 0.38268343, 0.0, 0.92387953),
+                      scale=(0.8, 0.8, 0.8))
+    res["s1_add_ms"] = (time.perf_counter() - t0) * 1e3
+    out = tally("viewer_3d", v.render, ONE_3D, "viewer S0+S1 frame")
+    res["s1_load_to_first_frame_ms"] = (time.perf_counter() - t0) * 1e3
+    chk.check("S0+S1", v, out)
+
+    s2_path = os.path.join(tmp, "s2.ply")
+    gio.save_ply(viewer_splats(gt, N_S2, SEED + 2, v.device), s2_path)
+    snaps, partial = [0], {"frames": 0, "check_s": 0.0}
+    t0 = time.perf_counter()
+
+    def on_update(scene, fraction):
+        snaps[0] += 1
+        if (snaps[0] - 1) % PARTIAL_EVERY:
+            return
+        out = tally("viewer_3d", v.render, ONE_3D,
+                    f"S2 partial frame at {fraction:.3f}")
+        if partial["frames"] == 0:
+            partial["first_ms"] = (time.perf_counter() - t0) * 1e3
+            partial["first_splats"] = scene.num_splats
+        partial["frames"] += 1
+        t1 = time.perf_counter()
+        chk.check(f"S2 partial at {fraction:.3f}", v, out)
+        partial["check_s"] += time.perf_counter() - t1
+
+    s2 = v.add_splat_scene_progressive(s2_path, on_update=on_update,
+                                       position=(-3.2, 0.0, 0.0))
+    out = tally("viewer_3d", v.render, ONE_3D, "viewer S2 final frame")
+    res["s2_final_frame_ms"] = ((time.perf_counter() - t0)
+                                - partial["check_s"]) * 1e3
+    chk.check("S2 final", v, out)
+    if s2.num_splats != N_S2 or partial["frames"] == 0:
+        raise AssertionError(f"S2 has {s2.num_splats} splats and "
+                             f"{partial['frames']} partial frames")
+    # the same stream through a ProgressiveLoader alone: what of S2's load
+    # is the host's fetch and decode of the growing prefix
+    from gaussiansplats3d_tpu_torch.io.fetch import fetch_with_progress
+    from gaussiansplats3d_tpu_torch.io.progressive import ProgressiveLoader
+    loader = ProgressiveLoader.for_path(s2_path, device=v.device)
+
+    def feed(_pct, _label, chunk, _total):
+        loader.feed(chunk)
+        loader.snapshot()
+
+    _, decode_ms = wall_ms(lambda: (fetch_with_progress(s2_path, feed),
+                                    loader.finalize()))
+    res["s2_stream_decode_ms"] = decode_ms
+    res.update({"s2_snapshots": snaps[0],
+                "s2_partial_frames": partial["frames"],
+                "s2_first_partial_frame_ms": partial["first_ms"],
+                "s2_first_partial_splats": partial["first_splats"],
+                "s2_file_bytes": os.path.getsize(s2_path)})
+    log(f"viewer loads: S1 ({N_S1} splats, .ksplat level 1) written in "
+        f"{res['s1_write_s']:.2f} s, added in {res['s1_add_ms']:.1f} ms, "
+        f"load to first frame {res['s1_load_to_first_frame_ms']:.1f} ms; "
+        f"S2 ({N_S2} splats, {res['s2_file_bytes']} B .ply) "
+        f"{res['s2_snapshots']} snapshots, first partial frame "
+        f"({res['s2_first_partial_splats']} splats) at "
+        f"{res['s2_first_partial_frame_ms']:.1f} ms, final frame at "
+        f"{res['s2_final_frame_ms']:.1f} ms ({partial['frames']} partial "
+        f"frames; {partial['check_s']:.2f} s of their checks left out); "
+        f"the same stream's fetch and snapshot decodes alone "
+        f"{decode_ms:.1f} ms")
+    return res, s1_path, s2_path
+
+
+def run_fade(tally, v, chk):
+    """The reveal fade to its end: one frame a tick, each checked; it must
+    end on the frame host arithmetic predicts, within MAX_FADE_FRAMES."""
+    vr = v.visible_region
+    predicted = predicted_fade_frames(vr)
+    if predicted > MAX_FADE_FRAMES:
+        raise AssertionError(f"the fade needs {predicted} frames")
+    frames = 0
+    while not vr.complete:
+        if frames == MAX_FADE_FRAMES:
+            raise AssertionError("the fade did not complete")
+        out = tally("viewer_3d", v.render, ONE_3D, "fade frame")
+        frames += 1
+        chk.check(f"fade frame {frames}", v, out)
+    if frames != predicted:
+        raise AssertionError(f"the fade completed after {frames} frames, "
+                             f"host arithmetic predicts {predicted}")
+    if vr.tick(v.scene_reveal_mode) is not None:
+        raise AssertionError("tick returned a fade after completion")
+    log(f"viewer fade: completed on frame {frames} as predicted (rate "
+        f"multiplier {FADE_MULTIPLIER})")
+    return frames
+
+
+def dynamic_frames(tally, v, chk):
+    """Change S1's position, S2's opacity and S0's visibility between
+    frames: each re-renders (B1 once), differs from the frame before and
+    equals its direct render; then the scenes go back."""
+    s0, s1, s2 = (v.get_splat_scene(i) for i in range(3))
+    changes = (("S1 moved", s1, "position", (3.2, 0.6, -0.4)),
+               ("S2 opacity 0.5", s2, "opacity", 0.5),
+               ("S0 hidden", s0, "visible", False))
+    olds = [getattr(scene, attr) for _, scene, attr, _ in changes]
+    prev = tally("viewer_3d", v.render, ONE_3D, "before changes")
+    chk.check("before changes", v, prev)
+    for name, scene, attr, value in changes:
+        setattr(scene, attr, value)
+        out = tally("viewer_3d", v.render, ONE_3D, name)
+        chk.check(name, v, out)
+        if max_diff(out, prev) <= 1e-3:
+            raise AssertionError(f"{name}: the frame did not change")
+        prev = out
+    for (_, scene, attr, _), old in zip(changes, olds):
+        setattr(scene, attr, old)
+    return ["before changes"] + [name for name, *_ in changes]
+
+
+def viewer_timings(gt, tally, v, chk):
+    """Viewer.render against render() on the same inputs, median of
+    RENDERS each (RenderMode.Always, fade complete), and the stereo pair;
+    every timed viewer frame and pair counted."""
+    cam = v._current_camera(None)
+    splats, kw = direct_inputs(v)
+    with torch.no_grad():
+        direct = [wall_ms(lambda: gt.render(splats, cam, v.config, **kw))
+                  for _ in range(RENDERS)]
+    viewer = [tally("viewer_3d", lambda: wall_ms(v.render), ONE_3D,
+                    "timed viewer frame") for _ in range(RENDERS)]
+    chk.check("timed viewer frame", v, viewer[-1][0])
+    stereo = [tally("viewer_stereo",
+                    lambda: wall_ms(lambda: v.render_stereo(0.064)), PAIR_3D,
+                    "timed stereo pair") for _ in range(RENDERS)]
+    res = {"viewer_ms": [t for _, t in viewer],
+           "direct_ms": [t for _, t in direct],
+           "stereo_ms": [t for _, t in stereo]}
+    for k in list(res):
+        res[k.replace("_ms", "_median_ms")] = float(np.median(res[k]))
+    res["viewer_overhead_ms"] = (res["viewer_median_ms"]
+                                 - res["direct_median_ms"])
+    log(f"viewer timings at {VIEW_W}x{VIEW_H}: Viewer.render median "
+        f"{res['viewer_median_ms']:.2f} ms ("
+        f"{', '.join(f'{x:.2f}' for x in res['viewer_ms'])}), render() "
+        f"median {res['direct_median_ms']:.2f} ms ("
+        f"{', '.join(f'{x:.2f}' for x in res['direct_ms'])}): overhead "
+        f"{res['viewer_overhead_ms']:.2f} ms; render_stereo median "
+        f"{res['stereo_median_ms']:.2f} ms")
+    return res
+
+
+def stereo_check(tally, v, chk, eye_separation=0.064):
+    """One counted stereo pair (B1 twice), each eye against its direct
+    render at the eye's camera; the eyes differ."""
+    gt = chk.gt
+    pair = tally("viewer_stereo", lambda: v.render_stereo(eye_separation),
+                 PAIR_3D, "stereo pair")
+    cam = v._current_camera(None)
+    right = torch.linalg.inv(cam.view)[:3, 0]
+    for sign, eye in ((-0.5, "left"), (0.5, "right")):
+        offset = right * (sign * eye_separation)
+        t = torch.eye(4, device=cam.view.device)
+        t[:3, 3] = -offset
+        chk.check(f"stereo {eye}", v, pair[eye],
+                  gt.Camera(view=cam.view @ t, proj=cam.proj,
+                            cam_pos=cam.cam_pos + offset))
+    d = max_diff(pair["left"], pair["right"])
+    if d <= 1e-3:
+        raise AssertionError(f"the stereo eyes do not differ ({d})")
+    return d
+
+
+def gating(tally, v, chk):
+    """RenderMode.OnChange after the fade: a forced frame renders, a repeat
+    and a sub-epsilon camera move reuse it, a move over the epsilon
+    renders; RenderMode.Never renders nothing.  Returns each step's B1
+    launches."""
+    from gaussiansplats3d_tpu_torch.viewer import RenderMode
+    v.render_mode = RenderMode.OnChange
+    base = np.asarray(v.camera.position, np.float64).copy()
+    steps = []
+
+    def step(name, expect, move=None):
+        if move is not None:
+            v.camera.position = base + np.array([move, 0.0, 0.0])
+        out = tally("viewer_3d", v.render, (expect, 0, 0, 0, 0), name)
+        if expect:
+            chk.check(name, v, out)
+        steps.append((name, expect))
+
+    v.force_render_next_frame()
+    step("OnChange forced", 1)
+    step("OnChange repeat", 0)
+    step(f"OnChange {SMALL_MOVE} move", 0, SMALL_MOVE)
+    step(f"OnChange {LARGE_MOVE} move", 1, SMALL_MOVE + LARGE_MOVE)
+    v.render_mode = RenderMode.Never
+    step("Never", 0)
+    step("Never after a move", 0, 0.0)
+    v.camera.position = base
+    v.render_mode = RenderMode.Always
+    log("viewer gating: " + ", ".join(f"{n} {e}" for n, e in steps))
+    return steps
+
+
+def viewer_b1(cr, v):
+    """check_b1 on the records of the viewer's 4K frame: its concatenated
+    splats, its camera and its scene inputs (fade complete)."""
+    splats, kw = direct_inputs(v)
+    return check_b1(cr, splats, v._current_camera(None), "viewer-4k",
+                    v.config, kw)
+
+
+def render_scene_b1(cr, s1_path, device):
+    """check_b1 on the records of render_scene's first frame: the Viewer
+    the tool builds for viewer_tools' arguments (its defaults: 1280x720,
+    camera (3, 2, 3) at the origin, the reveal fade on), S1's .ksplat,
+    one frame drawn."""
+    from gaussiansplats3d_tpu_torch.viewer import Viewer
+    v = Viewer(width=1280, height=720,
+               max_spherical_harmonics_degree=SH_DEGREE,
+               initial_camera_position=(3.0, 2.0, 3.0), device=device)
+    v.add_splat_scene(s1_path)
+    with torch.no_grad():
+        v.render()
+    splats, kw = direct_inputs(v)
+    out = check_b1(cr, splats, v._current_camera(None), "render-scene-720p",
+                   v.config, kw)
+    v.dispose()
+    return out
+
+
+def viewer_2d(tally, v, chk):
+    """A 2D viewer over the same three scenes: B3 once a frame, B1 never;
+    its frame against render_2d_tiled, a timed frame, then check_b3 on the
+    records of its frame.  Returns (frame ms, check_b3's result)."""
+    from gaussiansplats3d_tpu_torch.viewer import (SceneRevealMode,
+                                                   SplatRenderMode, Viewer)
+    v2 = Viewer(width=VIEW_W, height=VIEW_H,
+                max_spherical_harmonics_degree=SH_DEGREE,
+                initial_camera_position=tuple(v.camera.position),
+                splat_render_mode=SplatRenderMode.TwoD,
+                scene_reveal_mode=SceneRevealMode.Instant, device=v.device)
+    for i in range(v.scene_count):
+        v2.add_splat_scene(v.get_splat_scene(i))
+    out = tally("viewer_2d", v2.render, ONE_2D, "2D viewer frame")
+    chk.check("2D", v2, out)
+    _, ms = tally("viewer_2d", lambda: wall_ms(v2.render), ONE_2D,
+                  "timed 2D viewer frame")
+    splats, kw = direct_inputs(v2)
+    kw.pop("fade_params")
+    b3 = check_b3(tally.cs, splats, v2._current_camera(None), "viewer-2d-4k",
+                  v2.config, kw)
+    v2.dispose()
+    log(f"viewer 2D frame: {ms:.2f} ms, alpha mean "
+        f"{float(out['alpha'].mean()):.4f}")
+    return ms, b3
+
+
+def picking(v):
+    """raycast through the image centre in sphere and ellipsoid mode,
+    against the port's raycaster on CPU copies of the same splats,
+    transforms, scene indices and ray."""
+    from gaussiansplats3d_tpu_torch.viewer.raycaster import Ray, Raycaster
+    cam = v._current_camera(None)
+    x, y = VIEW_W / 2, VIEW_H / 2
+    ray = Ray.from_camera_and_screen(cam, x, y, VIEW_W, VIEW_H)
+    splats, kw = direct_inputs(v)
+    cpu = splats.to("cpu")
+    ray_cpu = Ray(ray.origin.cpu(), ray.direction.cpu())
+    res = {}
+    for ellipsoid in (False, True):
+        v.raycaster.ellipsoid = ellipsoid
+        hit, ms = wall_ms(lambda: v.raycast(x, y))
+        ref = Raycaster(ellipsoid).intersect(
+            ray_cpu, cpu, kw["transforms"].cpu(), kw["scene_indices"].cpu())
+        mode = "ellipsoid" if ellipsoid else "sphere"
+        if hit is None or ref is None:
+            raise AssertionError(f"raycast ({mode}) missed: {hit} {ref}")
+        if ((hit.splat_index, hit.scene_index)
+                != (ref.splat_index, ref.scene_index)
+                or abs(hit.t - ref.t) > 1e-4 * abs(ref.t)):
+            raise AssertionError(f"raycast ({mode}) {hit} against the CPU's "
+                                 f"{ref}")
+        res[mode] = {"ms": ms, "splat_index": hit.splat_index,
+                     "scene_index": hit.scene_index, "t": hit.t,
+                     "t_cpu": ref.t}
+        log(f"viewer raycast ({mode}): {ms:.2f} ms, splat "
+            f"{hit.splat_index} of scene {hit.scene_index} at t {hit.t:.6f}"
+            f" (CPU {ref.t:.6f})")
+    v.raycaster.ellipsoid = False
+    return res
+
+
+def viewer_tools(tally, s1_path, s2_path, tmp):
+    """render_scene on S1's .ksplat (B1 once a frame) and create_ksplat of
+    S2's .ply at level 2, whose bytes must equal save_ksplat's of the same
+    load with the tool's settings."""
+    from gaussiansplats3d_tpu_torch import io as gio
+    from gaussiansplats3d_tpu_torch.tools import create_ksplat, render_scene
+    frames = 8
+    out_png = os.path.join(tmp, "frame.png")
+    rc, launches, secs, text = tool_path(
+        "render_scene", lambda: render_scene.main(
+            [s1_path, out_png, "--sh", "1", "--frames", str(frames)]),
+        tally.cr, tally.cs, tally.kb)
+    tally.add("render_scene", launches)
+    written = [p for p in os.listdir(tmp) if p.startswith("frame_")]
+    if rc != 0 or launches != (frames, 0, 0, 0, 0) or len(written) != frames:
+        raise AssertionError(f"render_scene returned {rc}, launched "
+                             f"{launches}, wrote {len(written)} frames")
+    out_ks = os.path.join(tmp, "s2.ksplat")
+    rc, ck_launches, ck_secs, _ = tool_path(
+        "create_ksplat", lambda: create_ksplat.main([s2_path, out_ks, "2"]),
+        tally.cr, tally.cs, tally.kb)
+    tally.add("create_ksplat", ck_launches)
+    ref_ks = os.path.join(tmp, "s2_ref.ksplat")
+    gio.save_ksplat(gio.load(s2_path, device="cpu"), ref_ks,
+                    compression_level=2, minimum_alpha=1)
+    with open(out_ks, "rb") as a, open(ref_ks, "rb") as b:
+        same = a.read() == b.read()
+    if rc != 0 or any(ck_launches) or not same:
+        raise AssertionError(f"create_ksplat returned {rc}, launched "
+                             f"{ck_launches}, bytes equal {same}")
+    return {"render_scene": {"launches": launches, "seconds": secs,
+                             "frames": frames},
+            "create_ksplat": {"seconds": ck_secs,
+                              "bytes": os.path.getsize(out_ks)}}
+
+
+def viewer_slice(gt, cr, cs, kb, s0, device):
+    """Phase 10 (see the module docstring).  Returns its results and the
+    (B1, ..., B5) launches of each viewer path, summed from the counters'
+    readings."""
+    from gaussiansplats3d_tpu_torch.viewer import Viewer
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    chk = ViewerChecks(gt)
+    tally = Tally(cr, cs, kb)
+    v = Viewer(width=VIEW_W, height=VIEW_H,
+               max_spherical_harmonics_degree=SH_DEGREE,
+               initial_camera_position=(0.0, 3.0, 9.0),
+               scene_fade_in_rate_multiplier=FADE_MULTIPLIER, device=device)
+    step_s = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        step_s[name] = time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        res, s1_path, s2_path = timed(
+            "loads", lambda: load_scenes(gt, tally, v, s0, tmp, chk))
+        res["splats"] = sum(v.get_splat_scene(i).num_splats
+                            for i in range(v.scene_count))
+        res["fade_frames"] = timed("fade", lambda: run_fade(tally, v, chk))
+        res["dynamic"] = timed("dynamic",
+                               lambda: dynamic_frames(tally, v, chk))
+        res["timings"] = timed(
+            "timings", lambda: viewer_timings(gt, tally, v, chk))
+        res["stereo_eye_diff"] = timed(
+            "stereo", lambda: stereo_check(tally, v, chk))
+        res["gating"] = timed("gating", lambda: gating(tally, v, chk))
+        res["b1_4k"] = timed("B1 at 4K", lambda: viewer_b1(cr, v))
+        res["frame_2d_ms"], res["b3_4k"] = timed(
+            "2d and B3 at 4K", lambda: viewer_2d(tally, v, chk))
+        res["raycast"] = timed("picking", lambda: picking(v))
+        res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        res["tools"] = timed("tools", lambda: viewer_tools(
+            tally, s1_path, s2_path, tmp))
+        res["b1_render_scene"] = timed(
+            "B1 at render_scene's frame",
+            lambda: render_scene_b1(cr, s1_path, device))
+    v.dispose()
+    res["frames_checked"] = chk.frames
+    res["max_abs_diff_vs_direct"] = chk.max_abs
+    res["seconds"] = time.perf_counter() - t_phase
+    res["step_seconds"] = step_s
+    res["launches_by_path"] = tally.by_path
+    log("viewer slice steps (s): "
+        + ", ".join(f"{k} {x:.2f}" for k, x in step_s.items()))
+    log(f"viewer slice: {res['splats']} splats at {VIEW_W}x{VIEW_H}; "
+        f"{chk.frames} frames against their direct renders, largest "
+        f"|difference| {chk.max_abs:.3e} (worst p99.9 {chk.worst_p999:.3e})"
+        f"; peak memory {res['peak_mem_bytes'] / 2**30:.2f} GiB; "
+        f"{res['seconds']:.1f} s; (B1, B2, B3, B4, B5) launches read per "
+        f"path {tally.by_path}")
+    return res, tally.by_path
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1684,7 +2268,7 @@ def main():
         raise AssertionError("B3 or B4 launched on a 3D path")
 
     cfg2d = cfg.replace(render_mode_2d=True)
-    b3, b4 = check_b3_b4_all(gt, cs, splats, cam, cfg)
+    b3, b4 = check_b3_b4_all(cs, splats, cam, cfg)
     run2d = main_path_2d(gt, cr, cs, splats, cam, cfg2d)
     b3["main_path"] = run2d
     b3["stages_ms"] = stage_breakdown_2d(splats, cam, cfg2d)
@@ -1719,6 +2303,22 @@ def main():
                                   for k, v in tools.items()}
     b5["tools_seconds"] = {k: v["seconds"] for k, v in tools.items()}
     b5["bench_configs"] = tools["bench_configs"]["records"]
+
+    viewer, by_path = viewer_slice(gt, cr, cs, kb, splats, device)
+    b1["viewer"] = viewer
+    for i, entry in ((0, b1), (2, b3)):
+        paths = {p: n[i] for p, n in by_path.items() if n[i]}
+        entry["launches"] += sum(paths.values())
+        entry["launches_by_path"].update(paths)
+    b5["launches_by_path"]["viewer paths"] = sum(n[4]
+                                                 for n in by_path.values())
+    # the kernels at the viewer paths' records beside the 1080p ones
+    for entry, name, key in ((b1, "viewer-4k", "b1_4k"),
+                             (b1, "render-scene-720p", "b1_render_scene"),
+                             (b3, "viewer-2d-4k", "b3_4k")):
+        entry["per_config"][name] = viewer[key]
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   viewer[key]["max_abs_err"])
     log(json.dumps({"kernels": [b1, b2, b3, b4, b5]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

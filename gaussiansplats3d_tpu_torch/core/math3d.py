@@ -46,6 +46,58 @@ def quat_to_rotmat(quats: torch.Tensor) -> torch.Tensor:
     )
 
 
+def rotmat_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix ``[3, 3]`` to quaternion (x, y, z, w). Not batched."""
+    t = m[0, 0] + m[1, 1] + m[2, 2]
+    # Branch-free Shepperd-style construction.
+    qw = torch.sqrt(torch.clamp(1.0 + t, min=0.0)) / 2.0
+    qx = torch.sqrt(torch.clamp(1.0 + m[0, 0] - m[1, 1] - m[2, 2],
+                                min=0.0)) / 2.0
+    qy = torch.sqrt(torch.clamp(1.0 - m[0, 0] + m[1, 1] - m[2, 2],
+                                min=0.0)) / 2.0
+    qz = torch.sqrt(torch.clamp(1.0 - m[0, 0] - m[1, 1] + m[2, 2],
+                                min=0.0)) / 2.0
+    qx = torch.copysign(qx, m[2, 1] - m[1, 2])
+    qy = torch.copysign(qy, m[0, 2] - m[2, 0])
+    qz = torch.copysign(qz, m[1, 0] - m[0, 1])
+    return normalize(torch.stack([qx, qy, qz, qw]))
+
+
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of quaternions in (x, y, z, w) order, batched."""
+    ax, ay, az, aw = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bx, by, bz, bw = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack(
+        [
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+            aw * bw - ax * bx - ay * by - az * bz,
+        ],
+        dim=-1,
+    )
+
+
+def compose_transform(position=None, quaternion=None, scale=None,
+                      device="cuda") -> torch.Tensor:
+    """Build a float32 4x4 affine transform on ``device`` from TRS
+    components (three.js `compose`)."""
+    r = (quat_to_rotmat(_vec3(quaternion, device)) if quaternion is not None
+         else torch.eye(3, dtype=torch.float32, device=device))
+    s = (_vec3(scale, device) if scale is not None
+         else torch.ones(3, dtype=torch.float32, device=device))
+    m = torch.eye(4, dtype=torch.float32, device=device)
+    m[:3, :3] = r * s[None, :]
+    if position is not None:
+        m[:3, 3] = _vec3(position, device)
+    return m
+
+
+def transform_points(m: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply a 4x4 affine transform to points ``[..., 3]``."""
+    return pts @ m[:3, :3].T + m[:3, 3]
+
+
 def _vec3(v, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=device)
 

@@ -80,6 +80,20 @@ class SplatData:
             sh = torch.cat([self.sh, pad], dim=1)
         return dataclasses.replace(self, sh=sh)
 
+    def to(self, device) -> "SplatData":
+        """Every field on ``device`` (a field already there is kept)."""
+        return SplatData(*(getattr(self, f.name).to(device)
+                           for f in dataclasses.fields(SplatData)))
+
+    @staticmethod
+    def concatenate(parts: "list[SplatData]") -> "SplatData":
+        """One SplatData of ``parts`` in order, every part raised to the
+        highest SH degree among them; all parts on one device."""
+        degree = max(p.sh_degree for p in parts)
+        parts = [p.with_sh_degree(degree) for p in parts]
+        return SplatData(*(torch.cat([getattr(p, f.name) for p in parts])
+                           for f in dataclasses.fields(SplatData)))
+
     @staticmethod
     def zeros(n: int, sh_degree: int = 0, device="cuda") -> "SplatData":
         k = SH_DEGREE_TO_COEFF_COUNT[sh_degree]

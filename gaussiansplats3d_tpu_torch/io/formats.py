@@ -2,8 +2,7 @@
 counterpart of the JAX package's ``io/formats.py``.
 
 Mirrors the reference's src/loaders/Utils.js:3-9 (sceneFormatFromPath) and
-the per-format loaders' entry points.  URL fetch is not ported: a URL
-raises ``NotImplementedError``.
+the per-format loaders' entry points.
 """
 
 from __future__ import annotations
@@ -31,21 +30,31 @@ def scene_format_from_path(path: str) -> SceneFormat:
 
 
 def load(path: str, sh_degree: int | None = None,
-         format: "SceneFormat | None" = None, device="cuda") -> SplatData:
-    """Load any supported scene file into SplatData on ``device``.
+         on_progress=None, abort_event=None,
+         format: "SceneFormat | None" = None,
+         headers: dict | None = None, device="cuda") -> SplatData:
+    """Load any supported scene file or URL into SplatData on ``device``.
 
     ``sh_degree`` optionally truncates higher-order SH at load time (the
-    reference's outSphericalHarmonicsDegree parameter).  ``format``
-    overrides extension sniffing, like the reference's per-scene ``format``
-    option (Viewer.js addSplatScene options).
+    reference's outSphericalHarmonicsDegree parameter).  ``on_progress`` /
+    ``abort_event`` stream download progress (io.fetch.fetch_with_progress,
+    the fetchWithProgress parity surface) — used for URLs and large files.
+    ``format`` overrides extension sniffing and ``headers`` adds HTTP
+    request headers, like the reference's per-scene ``format``/``headers``
+    options (Viewer.js addSplatScene options).
     """
-    if "://" in path:
-        raise NotImplementedError(
-            "loading from a URL is not ported (io/fetch.py); download the "
-            "file and load its path")
-    fmt = format if format is not None else scene_format_from_path(path)
-    with open(path, "rb") as f:
-        return parse(f.read(), fmt, sh_degree, device)
+    is_url = "://" in path
+    base = path.split("?")[0] if is_url else path
+    fmt = format if format is not None else scene_format_from_path(base)
+    if (is_url or on_progress is not None or abort_event is not None
+            or headers is not None):
+        from .fetch import fetch_with_progress
+        data = fetch_with_progress(path, on_progress, abort_event,
+                                   headers=headers)
+    else:
+        with open(path, "rb") as f:
+            data = f.read()
+    return parse(data, fmt, sh_degree, device)
 
 
 def parse(data: bytes, fmt: SceneFormat, sh_degree: int | None = None,

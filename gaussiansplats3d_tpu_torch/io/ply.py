@@ -125,10 +125,54 @@ def _sigmoid(x):
     return 1.0 / (1.0 + np.exp(-x))
 
 
-def parse_ply_inria_v1(data: bytes, sh_degree: int | None = None,
-                       device="cuda") -> SplatData:
-    """Decode an INRIA V1 (or plain point-cloud) PLY buffer."""
+def streamable_ply_info(data: bytes):
+    """(header_size, vertex_count, row_stride) if ``data``'s header shows a
+    prefix-decodable PLY, else None.
+
+    Streamable means: binary little-endian, vertex element first, fixed-size
+    properties, INRIA V1 / point-cloud dialect — then any complete-row prefix
+    of the body decodes (the layout the reference streams in 256 KiB sections,
+    PlyLoader.js:89-291).  Returns None while the header is still incomplete
+    or for buffer-up dialects (ascii, PlayCanvas chunks, V2 codebooks, spz).
+    """
+    if data.find(_HEADER_END) < 0:
+        return None
     header = parse_ply_header(data)
+    if header.format != "binary_little_endian":
+        return None
+    if not header.elements or header.elements[0][0] != "vertex":
+        return None
+    names = [e[0] for e in header.elements]
+    if "chunk" in names or any("codebook" in n for n in names):
+        return None
+    count, props = header.vertex
+    stride = 0
+    for _, t in props:
+        if isinstance(t, tuple):
+            return None
+        stride += np.dtype(_PLY_DTYPES[t]).itemsize
+    return header.header_size, count, stride
+
+
+def _clamp_vertex_count(header: PlyHeader, max_splats: int) -> PlyHeader:
+    elements = [(name, min(count, max_splats) if name == "vertex" else count,
+                 props) for name, count, props in header.elements]
+    return PlyHeader(header.format, elements, header.header_size)
+
+
+def parse_ply_inria_v1(data: bytes, sh_degree: int | None = None,
+                       max_splats: int | None = None,
+                       device="cuda") -> SplatData:
+    """Decode an INRIA V1 (or plain point-cloud) PLY buffer.
+
+    ``max_splats`` clamps the decoded vertex count below the header's —
+    the progressive-load path decodes the complete rows of a partially
+    downloaded body this way (KSplatLoader.js-style watermark streaming
+    applied to PLY, PlyLoader.js:89-291).
+    """
+    header = parse_ply_header(data)
+    if max_splats is not None:
+        header = _clamp_vertex_count(header, max_splats)
     count, props = header.vertex
     names = {p[0] for p in props}
     v = _vertex_recarray(data, header)
@@ -194,7 +238,7 @@ def parse_ply(data: bytes, sh_degree: int | None = None,
               device="cuda") -> SplatData:
     variant = detect_ply_variant(data)
     if variant in ("inria_v1", "pointcloud"):
-        return parse_ply_inria_v1(data, sh_degree, device)
+        return parse_ply_inria_v1(data, sh_degree, device=device)
     if variant == "playcanvas":
         from .ply_playcanvas import parse_ply_playcanvas
         return parse_ply_playcanvas(data, sh_degree, device)

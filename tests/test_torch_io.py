@@ -271,5 +271,12 @@ def test_errors_match_jax(tmp_path):
     assert (_error(lambda: ks_t.serialize_ksplat(s_t, compression_level=3))
             == _error(lambda: ks_j.serialize_ksplat(s_j,
                                                     compression_level=3)))
-    with pytest.raises(NotImplementedError, match="URL"):
-        gt.load("https://example.invalid/scene.ply", device="cpu")
+    # a URL that names no file: the same fetch error (a file:// URL, so
+    # nothing leaves the machine)
+    missing = (tmp_path / "missing.ply").as_uri()
+    errs = []
+    for load in (gs.load, lambda p: gt.load(p, device="cpu")):
+        with pytest.raises(OSError) as e:
+            load(missing)
+        errs.append((type(e.value), str(e.value)))
+    assert errs[0] == errs[1]

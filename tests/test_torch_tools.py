@@ -2,7 +2,8 @@
 enums): kernel B5's plain versions against the JAX package's Pallas
 build_variant (interpret mode) on records the JAX package's
 bin_sort_records produced (f32 precision, rows 0-10 for the port); each
-tool's entry point on the CPU at a tiny size; and, on a card, B5 and the
+tool's entry point on the CPU at a tiny size, create_ksplat's bytes and
+render_scene's frames against the JAX tools'; and, on a card, B5 and the
 parity gate.
 
 Bars.  B5 plain vs Pallas: colors and T, each normalised by the Pallas
@@ -10,7 +11,9 @@ output's max, p99.9 of |d| <= 1e-5 and exit_k equal on every tile; the
 port's log_scan against the JAX mxu_scan_3 (its log-space prefix through 3
 bf16 limbs) at p99.9 <= 1e-4.  On the card: every
 B5 variant against its plain version, normalised p99.9 <= 1e-3 and <= 0.1%
-of elements over 1e-2, exit_k equal on >= 99% of tiles."""
+of elements over 1e-2, exit_k equal on >= 99% of tiles.  create_ksplat:
+byte for byte.  render_scene: the 8-bit frames by error mass, p99.9 of
+|d| <= 1e-3 and <= 0.1% of values over 1e-2."""
 
 import contextlib
 import dataclasses
@@ -351,3 +354,72 @@ def test_bench_scene_is_the_bench_scene():
     torch.testing.assert_close(s2.scales, ref.scales * 0.3)
     torch.testing.assert_close(cam.cam_pos, torch.tensor([4.5, 2.5, 4.5]))
     assert dataclasses.is_dataclass(s)
+
+
+def _tool_scene(tmp_path, ext, sh_degree):
+    """A scene file written by the JAX package from seeded numpy arrays."""
+    arrays = scene_arrays(300, sh_degree=sh_degree, seed=4, scale_mul=3.0)
+    path = str(tmp_path / f"in.{ext}")
+    gs.save(gs.SplatData(*(jnp.asarray(a) for a in arrays)), path)
+    return path
+
+
+@pytest.mark.parametrize("ext,args", [
+    ("ply", ["1"]),
+    ("splat", ["2", "5", "0,0,0", "4.0", "128"]),
+    ("ply", ["0", "1", "0,0,0", "5.0", "256", "1"])])
+def test_create_ksplat_matches_the_jax_tool_bytes(tmp_path, monkeypatch,
+                                                  ext, args):
+    """The port's converter writes the JAX tool's bytes from the same input
+    file and arguments (level, alpha threshold, block and bucket size, SH
+    degree)."""
+    from gaussiansplats3d_tpu.tools import create_ksplat as ck_j
+    from gaussiansplats3d_tpu_torch.tools import create_ksplat as ck_t
+    monkeypatch.setenv("GS_NATIVE", "0")      # the JAX numpy decoders
+    src = _tool_scene(tmp_path, ext, sh_degree=2 if ext == "ply" else 0)
+    outs = [str(tmp_path / f"out_{k}.ksplat") for k in ("j", "t")]
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert ck_j.main([src, outs[0]] + args) == 0
+        assert ck_t.main([src, outs[1]] + args) == 0
+    data = [open(p, "rb").read() for p in outs]
+    assert len(data[1]) > 4096 and data[1] == data[0]
+
+
+def _read_image(path):
+    """A written frame as float32 [H, W, 3] in [0, 1]: the PNG, or the PPM
+    a tool writes where PIL is missing."""
+    ppm = path.replace(".png", ".ppm")
+    if os.path.exists(path):
+        from PIL import Image
+        img = np.asarray(Image.open(path))
+    else:
+        with open(ppm, "rb") as f:
+            raw = f.read()
+        w, h = (int(v) for v in raw.split(b"\n", 1)[0].split()[1:3])
+        img = np.frombuffer(raw.split(b"\n", 1)[1], np.uint8).reshape(h, w, 3)
+    return img.astype(np.float32) / 255.0
+
+
+def test_render_scene_cpu_matches_the_jax_tool(tmp_path, monkeypatch):
+    """render_scene --cpu writes each orbit frame as the JAX tool does:
+    error mass over the 8-bit images, p99.9 of |d| <= 1e-3 and <= 0.1% of
+    the values over 1e-2."""
+    from gaussiansplats3d_tpu.tools import render_scene as rs_j
+    from gaussiansplats3d_tpu_torch.tools import render_scene as rs_t
+    monkeypatch.setenv("GS_NATIVE", "0")
+    src = _tool_scene(tmp_path, "ksplat", sh_degree=1)
+    args = ["--width", "64", "--height", "48", "--sh", "1", "--frames", "2",
+            "--orbit-degrees", "40", "--camera", "2.5,1.5,2.5"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert rs_j.main([src, str(tmp_path / "j.png")] + args) in (0, None)
+        assert rs_t.main([src, str(tmp_path / "t.png")] + args
+                         + ["--cpu"]) == 0
+    assert "loaded 300 splats (SH degree 1)" in out.getvalue()
+    for f in range(2):
+        a = _read_image(str(tmp_path / f"j_{f:04d}.png"))
+        b = _read_image(str(tmp_path / f"t_{f:04d}.png"))
+        assert a.shape == b.shape == (48, 64, 3)
+        assert a.max() > 0.2
+        p999, over = error_mass(a, b)
+        assert p999 <= 1e-3 and over <= 1e-3, f
