@@ -83,7 +83,32 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    2D) and of render_scene's 1280x720 frame; the viewer's overhead over
    render(), the stereo pair, load-to-first-frame, the progressive load's
    snapshots and times, picking and peak memory.  The kernels line's
-   launches of each viewer path are the sums of the counters' readings.
+   launches of each viewer path are the sums of the counters' readings;
+11. the multi-GPU slice on one card (the host has one H100, and NCCL
+   takes one rank a GPU, so the world has one rank): (a) the NCCL process
+   group at world size 1 (parallel.initialize_distributed) and a 1x1
+   make_mesh; sharded_render of the 2M scene under both routes and both
+   slab modes against render() by error mass (B1 once a render), and the
+   sharded training step in 3D 'mixed' (B1 and B2 once a step) and in 2D
+   (B3 and B4), its first loss against the single-device step's on the
+   same parameters; (b) a (1, 4) decomposition of the same scene at tile
+   16 (1080 px is 68 rows of 16) on one card, slab by slab through
+   sharded.slab_rows and sharded.render_slab, banded and interleaved, in
+   3D and 2D: the stitched slabs against render_tiles' chans, the forward
+   kernel counted once a slab, B1 then B2 (B3 then B4) against their plain
+   versions on every slab's records, each slab's kernel ms beside the
+   unsharded kernel's and the slabs' pairs; (c) BASELINE.json config 4 on
+   one card: 16M splats (bench.py's scene, torch.Generator seed 0), SH0,
+   1920x1080, train-packed through make_train_step on the 1x1 mesh, a
+   warm-up and 3 timed steps (B1 and B2 once a step): finite loss and
+   gradients, overflow, median step ms, Msplats/s and peak memory, then
+   B1 and B2 against their plain versions on the records its step bins
+   (sharded.slab_rows and render_slab at 1x1); (d) a save_checkpoint /
+   load_checkpoint round trip of the 2M state; (e) scaling_bench.main,
+   whose 1x1 shape runs in the one-rank world (the others are skipped,
+   and it says so), then B1 and B2 against their plain versions on its
+   1x1 step's records.  Each path's launches are the
+   counters' readings around its steps.
 
 Prints a {"kernels": [...]} line, and last {"ok": true, "device": ...}.
 It has no CPU mode: without a CUDA device it exits 1.
@@ -201,6 +226,23 @@ MAX_FADE_FRAMES = 40
 # OnChange gating: a camera move under the reference's 1e-4 epsilon reuses
 # the cached frame, one over it renders.
 SMALL_MOVE, LARGE_MOVE = 5e-5, 1e-3
+# Phase 11, the multi-GPU slice on one card (the host has one H100): the
+# routes and slab modes of parallel/sharded.py; sharded renders timed per
+# combination; the (1, 4) decomposition's tile side (1080 px is 68 rows of
+# 16, 17 a slab; 34 rows of 32 do not divide by 4); BASELINE.json config 4
+ROUTES = ("gather", "a2a")
+SLAB_MODES = ("banded", "interleaved")
+SHARDED_RENDERS = 3
+SLAB_SHARDS = 4
+SLAB_TILE = 16
+# At tile 16 about N pairs of this scene are big splats' (4 tiles or more):
+# aux slots for all of them, so that neither the whole frame nor a slab
+# drops pairs and the stitched slabs can equal the whole frame
+SLAB_AUX_MULTIPLIER = 1.5
+N_CONFIG4 = 16_000_000
+# scaling_bench's command line: its 200k scene at 512x256, SH1, tile 16
+SCALING_ARGV = ["200000", "--meshes", "1x1,2x1,2x2,4x2", "--iters", "3"]
+CONFIG4_STEPS = 3
 
 
 def log(*a):
@@ -874,18 +916,15 @@ def train_stage_breakdown(gt, cr, splats, cam, cfg):
     return out
 
 
-def profile_step(gt, splats, cam, cfg, wall_ms):
-    """torch.profiler over one default training step: device time, the
-    device's idle share against the unprofiled median step, the kernels
-    that take the most device time."""
+def profile_fn(name, fn, wall_ms):
+    """torch.profiler over one call of fn (which ends in nothing waiting):
+    device time, the device's idle share against the unprofiled median
+    wall time, the kernels that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    s = grad_splats(gt, splats)
-    grad_step(gt, s, cam, cfg)                      # warm-up
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        grad_step(gt, s, cam, cfg)
+        fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
@@ -897,12 +936,21 @@ def profile_step(gt, splats, cam, cfg, wall_ms):
     top = [{"name": e.key[:70], "count": e.count,
             "ms": e.self_device_time_total / 1e3} for e in kernels[:10]]
     idle = max(0.0, 1.0 - dev_ms / wall_ms)
-    log(f"profile train step: device {dev_ms:.3f} ms, "
+    log(f"profile {name}: device {dev_ms:.3f} ms, "
         f"{sum(e.count for e in kernels)} device ops, idle share {idle:.3f} "
         f"of the {wall_ms:.2f} ms median step")
     for k in top:
         log(f"  {k['ms']:8.3f} ms  x{k['count']}  {k['name']}")
     return {"device_ms": dev_ms, "idle_share": idle, "top": top}
+
+
+def profile_step(gt, splats, cam, cfg, wall_ms):
+    """profile_fn over one default training step, after a warm-up."""
+    s = grad_splats(gt, splats)
+    grad_step(gt, s, cam, cfg)                      # warm-up
+    torch.cuda.synchronize()
+    return profile_fn("train step", lambda: grad_step(gt, s, cam, cfg),
+                      wall_ms)
 
 
 def adam_steps(cr, splats, cam, cfg, steps=3):
@@ -2229,6 +2277,479 @@ def viewer_slice(gt, cr, cs, kb, s0, device):
     return res, tally.by_path
 
 
+# --- phase 11: the multi-GPU slice on one card ------------------------------
+
+def sharded_renders(gt, par, tally, mesh, splats, cam, cfg):
+    """(a) sharded_render of the 2M scene on the 1x1 NCCL mesh under both
+    routes and both slab modes against render(): B1 once a render."""
+    with torch.no_grad():
+        ref = gt.render(splats, cam, cfg)
+        out = {}
+        for route in ROUTES:
+            sp = par.device_put_sharded_splats(splats, mesh, route)
+            for mode in SLAB_MODES:
+                name = f"{route}/{mode}"
+                par.sharded_render(mesh, sp, cam, cfg, route=route,
+                                   slab_mode=mode)       # warm-up
+                times = []
+                for _ in range(SHARDED_RENDERS):
+                    img, ms = tally("sharded_render", lambda: wall_ms(
+                        lambda: par.sharded_render(mesh, sp, cam, cfg,
+                                                   route=route,
+                                                   slab_mode=mode)),
+                        (1, 0, 0, 0, 0), f"sharded_render {name}")
+                    times.append(ms)
+                errs = {k: error_mass(img[k], ref[k])
+                        for k in ("color", "alpha")}
+                log(f"sharded_render 1x1 {name}: median "
+                    f"{float(np.median(times)):.2f} ms ({times}); against "
+                    f"render(): " + ", ".join(
+                        f"{k} max {e[0]:.3e} p99.9 {e[1]:.3e} over 1e-2 "
+                        f"{e[2]:.3e}" for k, e in errs.items())
+                    + f"; overflow {int(img['overflow'])}")
+                for k, (_, p999, over) in errs.items():
+                    if not (p999 <= BAR_P999["chans"] and over <= BAR_OVER):
+                        raise AssertionError(f"sharded_render {name} {k} "
+                                             f"differs from render()")
+                if int(img["overflow"]) != 0:
+                    raise AssertionError(f"sharded_render {name} dropped "
+                                         f"{int(img['overflow'])}")
+                out[name] = {"median_ms": float(np.median(times)),
+                             "times_ms": times,
+                             "max_abs_vs_render": max(e[0] for e in
+                                                      errs.values())}
+        render_ms = [wall_ms(lambda: gt.render(splats, cam, cfg))[1]
+                     for _ in range(SHARDED_RENDERS)]
+    out["render_median_ms"] = float(np.median(render_ms))
+    log(f"render() beside them: median {out['render_median_ms']:.2f} ms")
+    return out
+
+
+def sharded_steps(par, tally, mesh, splats, cam, cfg):
+    """(a) the sharded training step on the 1x1 mesh, 3D 'mixed' (B1 and
+    B2 once a step) and 2D (B3 and B4), its first loss against the
+    single-device step's on the same parameters.  Returns the results and
+    the 3D state for the checkpoint."""
+    from gaussiansplats3d_tpu_torch.parallel import train
+    tiles, mask = train.image_to_tile_blocks(
+        torch.zeros((HEIGHT, WIDTH, 3), device=splats.device), cfg)
+    out, state3d = {}, None
+    for name, c, expect in (("3d-mixed", cfg, (1, 1, 0, 0, 0)),
+                            ("2d", cfg.replace(render_mode_2d=True),
+                             (0, 0, 1, 1, 0))):
+        single = train.TrainState.create(splats, train.adam(1e-3))
+        _, m1 = train.make_train_step(c, None, train.adam(1e-3))(
+            single, cam, tiles, mask)
+        del single
+        state = train.TrainState.create(
+            par.device_put_sharded_splats(splats, mesh), train.adam(1e-3))
+        step = par.make_train_step(c, mesh, train.adam(1e-3))
+        losses, times = [], []
+        for _ in range(STEPS):
+            (state, m), ms = tally(f"sharded_train_step_{name}",
+                                   lambda: wall_ms(lambda: step(
+                                       state, cam, tiles, mask)),
+                                   expect, f"sharded step {name}")
+            losses.append(float(m["loss"]))
+            times.append(ms)
+        rel = abs(losses[0] - float(m1["loss"])) / abs(float(m1["loss"]))
+        log(f"sharded train step 1x1 {name}: losses {losses}, median "
+            f"{float(np.median(times)):.2f} ms ({[round(t, 2) for t in times]}"
+            f"); first loss {losses[0]!r} against the single-device step's "
+            f"{float(m1['loss'])!r}: relative {rel:.3e}")
+        if not (np.all(np.isfinite(losses)) and rel <= 1e-5
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"sharded step {name}: losses {losses}, "
+                                 f"single-device {float(m1['loss'])}")
+        out[name] = {"losses": losses, "median_ms": float(np.median(times)),
+                     "times_ms": times, "first_loss_rel_vs_single": rel}
+        if name == "3d-mixed":
+            out[name]["profile"] = profile_fn(
+                f"sharded step 1x1 {name}",
+                lambda: step(state, cam, tiles, mask),
+                out[name]["median_ms"])
+            state3d = state
+    return out, state3d
+
+
+def slab_kernels(kmod, surfel):
+    """(forward, backward, plain forward, plain backward) of B1/B2 or
+    B3/B4."""
+    if surfel:
+        return (kmod.composite_surfel_fwd_cuda, kmod.composite_surfel_bwd_cuda,
+                kmod.composite_surfel_fwd_torch,
+                kmod.composite_surfel_bwd_torch)
+    return (kmod.composite_fwd_cuda, kmod.composite_bwd_cuda,
+            kmod.composite_fwd_torch, kmod.composite_bwd_torch)
+
+
+def slab_forward(kmod, surfel, slab, cfg):
+    """A compositor forward on one slab's records against its plain
+    version: (the kernel's outputs, its largest difference)."""
+    fwd, _, plain, _ = slab_kernels(kmod, surfel)
+    args = (slab.records, slab.tile_starts, slab.tile_counts, slab.tile_ids,
+            cfg)
+    outs = fwd(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    err = compare_forward("B3" if surfel else "B1", "slab",
+                          [("chans", outs[0], ref[0], BAR_P999["chans"]),
+                           ("logt", outs[1], ref[1], BAR_P999["logt"])],
+                          ref[2], outs[2], slab.tile_ids.shape[0])
+    return outs, max(err["chans"]["max_abs"], err["logt"]["max_abs"])
+
+
+def slab_backward(kmod, surfel, bargs):
+    """A compositor backward on one slab's records against its plain
+    version: its largest difference."""
+    _, bwd, _, plain = slab_kernels(kmod, surfel)
+    grad = bwd(*bargs)
+    torch.cuda.synchronize()
+    rows = compare_grad_rows("B4" if surfel else "B2", "slab", grad,
+                             plain(*bargs))
+    return max(r["max_abs"] for r in rows)
+
+
+def whole_frame(kmod, surfel, splats, cam, cfg):
+    """The whole frame at ``cfg``: the unsharded kernels' arguments
+    (forward, backward) on its records, and render_tiles' chans."""
+    from gaussiansplats3d_tpu_torch.render.pipeline import render_tiles
+    fwd = slab_kernels(kmod, surfel)[0]
+    if surfel:
+        args, _ = surfel_inputs(splats, cam, cfg)
+        outs = fwd(*args, cfg)
+        cots = surfel_cotangents(outs[0], outs[1], cfg)
+    else:
+        from gaussiansplats3d_tpu_torch.render.binning import bin_sort_records
+        from gaussiansplats3d_tpu_torch.render.projection import (
+            project_splats)
+        with torch.no_grad():
+            pairs = bin_sort_records(project_splats(splats, cam, cfg), cfg)
+        ids = torch.arange(cfg.num_tiles, dtype=torch.int32,
+                           device=splats.device)
+        args = (pairs.records, pairs.tile_starts, pairs.tile_counts, ids)
+        outs = fwd(*args, cfg)
+        cots = (color_loss_cotangent(outs[0], cfg),)
+    with torch.no_grad():
+        whole, _, overflow = render_tiles(splats, cam, cfg)
+    if int(overflow) != 0:
+        raise AssertionError(f"the whole frame at tile {cfg.tile_size} "
+                             f"dropped {int(overflow)} pairs")
+    return args + (cfg,), args + (outs[1], outs[2]) + cots + (cfg,), whole
+
+
+def kernel_window(kmod, surfel, whole_args, slab_args, reps=20):
+    """The kernels' ms in one window on the card: the whole frame's
+    forward and backward, each slab's, and the slabs' back to back."""
+    fwd, bwd = slab_kernels(kmod, surfel)[:2]
+    out = {}
+    for d, k, whole_a in (("fwd", fwd, whole_args[0]),
+                          ("bwd", bwd, whole_args[1])):
+        args = [a[0] if d == "fwd" else a[1] for a in slab_args]
+        out[f"whole_{d}_ms"] = cuda_ms(lambda: k(*whole_a), reps)
+        out[f"{d}_ms"] = [cuda_ms(lambda a=a: k(*a), reps) for a in args]
+        out[f"{d}_sum_ms"] = cuda_ms(lambda: [k(*a) for a in args], reps)
+    return out
+
+
+def slab_decomposition(par, tally, kmod, surfel, splats, cam, cfg):
+    """(b) a (1, SLAB_SHARDS) decomposition on one card through the
+    factored slab function (sharded.render_slab): for each slab mode, each
+    slab's rows as one splat shard routes them, its binning and composite
+    (counted: the forward kernel once a slab), the forward and backward
+    kernels against their plain versions on its records; the stitched
+    slabs against render_tiles' chans; then in one window on the card
+    (kernel_window) each slab's kernel ms, the four slabs back to back
+    and the whole frame's; slab pairs."""
+    from gaussiansplats3d_tpu_torch.parallel import sharded
+    from gaussiansplats3d_tpu_torch.render.projection import project_splats
+    from gaussiansplats3d_tpu_torch.render.surfel import project_surfels
+    t = SLAB_SHARDS
+    tag = "2d" if surfel else "3d"
+    whole_args = whole_frame(kmod, surfel, splats, cam, cfg)
+    whole = whole_args[2]
+    with torch.no_grad():
+        proj = (project_surfels if surfel else project_splats)(splats, cam,
+                                                               cfg)
+        d = proj.depth[proj.mask]
+        bounds = (d.min(), d.max())
+    out = {"fwd_max_abs_err": 0.0, "bwd_max_abs_err": 0.0}
+    expect = (0, 0, 1, 0, 0) if surfel else (1, 0, 0, 0, 0)
+    for mode in SLAB_MODES:
+        ecap = par.default_exchange_capacity(
+            cfg, splats.num_splats, t,
+            alpha=4.0 if mode == "interleaved" else 3.0)
+        slabs = []
+        for j in range(t):
+            with torch.no_grad():
+                slabs.append(tally(
+                    f"slabs_1x{t}_{tag}",
+                    lambda: sharded.render_slab(
+                        cfg, *sharded.slab_rows(cfg, proj, j, t, mode, ecap),
+                        j, t, mode, bounds),
+                    expect, f"slab {j} {mode} {tag}"))
+        if any(int(s.overflow) for s in slabs):
+            raise AssertionError(f"a slab ({tag} {mode}) dropped pairs")
+        stitched = torch.cat([s.chans for s in slabs])
+        if mode == "interleaved":
+            stitched = sharded.deinterleave_tile_order(stitched, t,
+                                                       cfg.tiles_x)
+        mx, p999, over = error_mass(stitched, whole)
+        log(f"slabs 1x{t} {tag} {mode}: stitched chans against "
+            f"render_tiles': max {mx:.3e} p99.9 {p999:.3e} over 1e-2 "
+            f"{over:.3e}")
+        if not (p999 <= BAR_P999["chans"] and over <= BAR_OVER):
+            raise AssertionError(f"stitched slabs ({tag} {mode}) differ "
+                                 f"from render_tiles")
+        fwd = [slab_forward(kmod, surfel, s, cfg) for s in slabs]
+        # the backward's cotangents: those of the whole image's loss at
+        # the stitched kernel outputs, cut back into the slabs
+        if surfel:
+            col = torch.cat([f[0][0] for f in fwd])
+            lt = torch.cat([f[0][1] for f in fwd])
+            if mode == "interleaved":
+                col, lt = (sharded.deinterleave_tile_order(x, t, cfg.tiles_x)
+                           for x in (col, lt))
+            cots = surfel_cotangents(col, lt, cfg)
+        else:
+            ch = torch.cat([f[0][0] for f in fwd])
+            if mode == "interleaved":
+                ch = sharded.deinterleave_tile_order(ch, t, cfg.tiles_x)
+            cots = (color_loss_cotangent(ch, cfg),)
+        if mode == "interleaved":
+            cots = tuple(sharded.interleave_tile_order(c, t, cfg.tiles_x)
+                         for c in cots)
+        lt_n = slabs[0].chans.shape[0]
+        slab_args = []
+        for j, (s, f) in enumerate(zip(slabs, fwd)):
+            a = (s.records, s.tile_starts, s.tile_counts, s.tile_ids)
+            slab_args.append((a + (cfg,), a + (f[0][1], f[0][2]) + tuple(
+                c[j * lt_n:(j + 1) * lt_n].contiguous() for c in cots)
+                + (cfg,)))
+        bwd_err = [slab_backward(kmod, surfel, a[1]) for a in slab_args]
+        pairs = [int(s.total_pairs - s.overflow) for s in slabs]
+        res = kernel_window(kmod, surfel, whole_args, slab_args)
+        res.update({"slab_pairs": pairs,
+                    "pairs_max_over_mean": max(pairs) / max(np.mean(pairs),
+                                                            1.0),
+                    "exchange_capacity": ecap, "stitched_max_abs": mx})
+        out["fwd_max_abs_err"] = max([out["fwd_max_abs_err"]]
+                                     + [f[1] for f in fwd])
+        out["bwd_max_abs_err"] = max([out["bwd_max_abs_err"]] + bwd_err)
+        out[mode] = res
+        log(f"slabs 1x{t} {tag} {mode}: forward kernel ms "
+            f"{[round(x, 3) for x in res['fwd_ms']]} (back to back "
+            f"{res['fwd_sum_ms']:.3f}, the whole frame's "
+            f"{res['whole_fwd_ms']:.3f}); backward ms "
+            f"{[round(x, 3) for x in res['bwd_ms']]} (back to back "
+            f"{res['bwd_sum_ms']:.3f}, the whole frame's "
+            f"{res['whole_bwd_ms']:.3f}); slab pairs {pairs}, max/mean "
+            f"{res['pairs_max_over_mean']:.3f}")
+    return out
+
+
+def config4(par, tally, mesh, device):
+    """(c) BASELINE.json config 4 on one card: 16M splats (bench.py's
+    scene), SH0, 1920x1080, train-packed through make_train_step on the
+    1x1 mesh; a warm-up and CONFIG4_STEPS timed steps (B1 and B2 once a
+    step), finite loss and gradients, overflow, ms, Msplats/s, peak
+    memory."""
+    import gaussiansplats3d_tpu_torch as gt
+    from gaussiansplats3d_tpu_torch.parallel import train
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    splats = gt.random_splats(gen, N_CONFIG4, sh_degree=0, extent=2.0,
+                              device=device)
+    splats.scales = splats.scales * 0.15
+    cam = gt.Camera.look_at((4.5, 2.5, 4.5), (0.0, 0.0, 0.0), fov_y_deg=60.0,
+                            aspect=WIDTH / HEIGHT, device=device)
+    cfg = gt.RenderConfig(width=WIDTH, height=HEIGHT, sh_degree=0,
+                          sort_bits=16, record_precision="packed")
+    state = train.TrainState.create(
+        par.device_put_sharded_splats(splats, mesh), train.adam(1e-3))
+    del splats
+    step = par.make_train_step(cfg, mesh, train.adam(1e-3))
+    tiles, mask = train.image_to_tile_blocks(
+        torch.zeros((HEIGHT, WIDTH, 3), device=device), cfg)
+    state, _ = step(state, cam, tiles, mask)             # warm-up
+    torch.cuda.synchronize()
+    losses, times = [], []
+    for _ in range(CONFIG4_STEPS):
+        (state, m), ms = tally("config4_train_step", lambda: wall_ms(
+            lambda: step(state, cam, tiles, mask)), (1, 1, 0, 0, 0),
+            "config 4 step")
+        losses.append(float(m["loss"]))
+        times.append(ms)
+    finite = all(bool(torch.isfinite(p.grad).all())
+                 for p in state.params.parameters())
+    peak = torch.cuda.max_memory_allocated()
+    profile = profile_fn("config 4 step", lambda: step(state, cam, tiles,
+                                                       mask),
+                         float(np.median(times)))
+    with torch.no_grad():
+        splats = state.params.to_splats()
+        _, stats = par.sharded_render_tiles(mesh, splats, cam, cfg,
+                                            return_stats=True)
+    med = float(np.median(times))
+    res = {"n": N_CONFIG4, "losses": losses, "times_ms": times,
+           "median_ms": med, "msplats_per_s": N_CONFIG4 / med / 1e3,
+           "peak_mem_bytes": peak, "overflow": int(stats["overflow"]),
+           "profile": profile,
+           "exchange_capacity": stats["exchange_capacity"],
+           "slab_pairs": stats["slab_pairs"].tolist()}
+    del state
+    res["kernels"] = path_kernels(par, tally.cr, splats, cam, cfg,
+                                  res["exchange_capacity"], "config 4")
+    log(f"config 4 ({N_CONFIG4:,} splats, SH0, {WIDTH}x{HEIGHT}, "
+        f"train-packed, 1x1 mesh): step ms "
+        f"{[round(t, 2) for t in times]}, median {med:.2f} = "
+        f"{res['msplats_per_s']:.3f} Msplats/s; losses {losses}; gradients "
+        f"finite {finite}; overflow {res['overflow']}; pairs "
+        f"{res['slab_pairs']}; exchange capacity {res['exchange_capacity']};"
+        f" peak memory {peak / 2**30:.2f} GiB")
+    if not (finite and np.all(np.isfinite(losses))):
+        raise AssertionError("config 4: non-finite loss or gradients")
+    return res
+
+
+def path_kernels(par, cr, splats, cam, cfg, ecap, name):
+    """B1 then B2 against their plain versions on the records a 1x1 mesh
+    step of a path bins (sharded.slab_rows, then sharded.render_slab,
+    under no_grad, with the step's exchange capacity), B2 with B1's
+    residuals and the cotangent of mean(color^2); each kernel's ms on
+    them.  Returns the largest differences, the ms and the pairs."""
+    from gaussiansplats3d_tpu_torch.parallel import sharded
+    from gaussiansplats3d_tpu_torch.render.projection import project_splats
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        proj = project_splats(splats, cam, cfg)
+        d = proj.depth[proj.mask]
+        slab = sharded.render_slab(
+            cfg, *sharded.slab_rows(cfg, proj, 0, 1, "banded", ecap), 0, 1,
+            "banded", (d.min(), d.max()))
+        del proj, d
+    if int(slab.overflow):
+        raise AssertionError(f"{name}: the records dropped "
+                             f"{int(slab.overflow)} pairs")
+    outs, fwd_err = slab_forward(cr, False, slab, cfg)
+    a = (slab.records, slab.tile_starts, slab.tile_counts, slab.tile_ids)
+    bargs = a + (outs[1], outs[2], color_loss_cotangent(outs[0], cfg), cfg)
+    bwd_err = slab_backward(cr, False, bargs)
+    res = {"fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err,
+           "pairs": int(slab.total_pairs), "tiles": int(a[1].shape[0]),
+           "fwd_ms": cuda_ms(lambda: cr.composite_fwd_cuda(*a, cfg), 5),
+           "bwd_ms": cuda_ms(lambda: cr.composite_bwd_cuda(*bargs), 5),
+           "seconds": time.perf_counter() - t0}
+    log(f"{name}: B1 and B2 against their plain versions on its step's "
+        f"records ({res['pairs']:,} pairs over {res['tiles']} tiles of "
+        f"{cfg.tile_size}): largest differences {fwd_err:.3e} (B1), "
+        f"{bwd_err:.3e} (B2); kernel ms {res['fwd_ms']:.3f} (B1), "
+        f"{res['bwd_ms']:.3f} (B2); {res['seconds']:.1f} s")
+    return res
+
+
+def scaling_kernels(par, cr, scaling_bench, report, device):
+    """(e) B1 and B2 against their plain versions on the records of
+    scaling_bench's 1x1 step (its scene, at its exchange capacity)."""
+    args = scaling_bench.parse_args(SCALING_ARGV)
+    cfg, splats, cam = scaling_bench.bench_scene(args, device)
+    row = report["results"][0]
+    if row["mesh"] != "1x1":
+        raise AssertionError(f"scaling_bench's first row is {row['mesh']}")
+    return path_kernels(par, cr, splats, cam, cfg,
+                        row["exchange_records_per_device"],
+                        "scaling_bench 1x1")
+
+
+def checkpoint_round_trip(par, mesh, state):
+    """(d) save_checkpoint and load_checkpoint of the 2M state on the
+    card, under the 1x1 mesh: the same parameters, moments and step."""
+    from gaussiansplats3d_tpu_torch.parallel import train
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        par.save_checkpoint(state, prefix, mesh=mesh)
+        t1 = time.perf_counter()
+        back = par.load_checkpoint(prefix, train.adam(1e-3), mesh=mesh)
+        t2 = time.perf_counter()
+        sizes = {f: os.path.getsize(prefix + f)
+                 for f in (".ksplat", ".opt.npz")}
+    same = back.step == state.step
+    for f in train.SplatParams.FIELDS:
+        a, b = getattr(state.params, f), getattr(back.params, f)
+        sa, sb = state.opt_state.state[a], back.opt_state.state[b]
+        same &= (torch.equal(a, b) and set(sa) == set(sb)
+                 and all(torch.equal(sa[k].cpu(), sb[k].cpu()) for k in sa))
+    log(f"checkpoint of the 2M state: save {t1 - t0:.2f} s, load "
+        f"{t2 - t1:.2f} s, {sizes}; equal {same}")
+    if not same:
+        raise AssertionError("checkpoint round trip changed the state")
+    return {"save_s": t1 - t0, "load_s": t2 - t1, "bytes": sizes}
+
+
+def multi_gpu_slice(gt, cr, cs, kb, splats, cam, cfg, device):
+    """Phase 11 (see the module docstring).  Returns its results, the
+    (B1, ..., B5) launches of each path summed from the counters'
+    readings, and the slab checks' largest kernel differences."""
+    from gaussiansplats3d_tpu_torch import parallel as par
+    from gaussiansplats3d_tpu_torch.tools import scaling_bench
+    t_phase = time.perf_counter()
+    tally = Tally(cr, cs, kb)
+    step_s = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        step_s[name] = time.perf_counter() - t0
+        return out
+
+    store = tempfile.TemporaryDirectory()
+    if par.initialize_distributed(f"file://{store.name}/store", 1, 0,
+                                  device="cuda"):
+        raise AssertionError("a world of one rank reported more")
+    try:
+        mesh = par.make_mesh("cuda", 1, 1)
+        res = {"renders": timed("renders", lambda: sharded_renders(
+            gt, par, tally, mesh, splats, cam, cfg))}
+        res["steps"], state = timed("steps", lambda: sharded_steps(
+            par, tally, mesh, splats, cam, cfg))
+        cfg_b = cfg.replace(tile_size=SLAB_TILE,
+                            aux_multiplier=SLAB_AUX_MULTIPLIER)
+        res["slabs_3d"] = timed("slabs 3d", lambda: slab_decomposition(
+            par, tally, cr, False, splats, cam, cfg_b))
+        res["slabs_2d"] = timed("slabs 2d", lambda: slab_decomposition(
+            par, tally, cs, True, splats, cam,
+            cfg_b.replace(render_mode_2d=True)))
+        res["checkpoint"] = timed("checkpoint", lambda: checkpoint_round_trip(
+            par, mesh, state))
+        del state
+        res["config4"] = timed("config 4", lambda: config4(
+            par, tally, mesh, device))
+        (_, launches, secs, text) = timed("scaling_bench", lambda: tool_path(
+            "scaling_bench", lambda: scaling_bench.main(SCALING_ARGV),
+            cr, cs, kb))
+        tally.add("scaling_bench", launches)
+        if launches != (5, 4, 0, 0, 0) or "2x2: skipped" not in text:
+            raise AssertionError(f"scaling_bench: launches {launches}")
+        res["scaling_bench"] = json.loads(
+            [ln for ln in text.splitlines()
+             if ln.startswith('{"metric"')][-1])
+        res["scaling_bench"]["kernels"] = timed(
+            "scaling_bench kernels", lambda: scaling_kernels(
+                par, cr, scaling_bench, res["scaling_bench"], device))
+    finally:
+        torch.distributed.destroy_process_group()
+        store.cleanup()
+    res["seconds"] = time.perf_counter() - t_phase
+    res["step_seconds"] = step_s
+    res["launches_by_path"] = tally.by_path
+    log("multi-GPU slice steps (s): "
+        + ", ".join(f"{k} {x:.2f}" for k, x in step_s.items()))
+    log(f"multi-GPU slice: {res['seconds']:.1f} s; (B1, B2, B3, B4, B5) "
+        f"launches read per path {tally.by_path}")
+    return res, tally.by_path
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2254,6 +2775,7 @@ def main():
     b1["launches"] = launches + train_b1
     b1["launches_by_path"] = {"render": launches, "train_step": train_b1}
     b2["launches"] = train_b2
+    b2["launches_by_path"] = {"train_step": train_b2}
     b2["launches_per_step"] = train_b2 / (STEPS * len(steps))
     b2["train_path"] = steps
     b2["stages_ms"] = train_stage_breakdown(gt, cr, splats, cam, cfg)
@@ -2281,6 +2803,7 @@ def main():
         "render_2d": run2d["launches_b1_b2_b3_b4"][2],
         "train_step_2d": step2d["launches_b1_b2_b3_b4"][2]}
     b4["launches"] = step2d["launches_b1_b2_b3_b4"][3]
+    b4["launches_by_path"] = {"train_step_2d": b4["launches"]}
     b4["train_path"] = step2d
     b4["profile"] = profile_step(gt, splats, cam, cfg2d,
                                  step2d["median_ms"])
@@ -2319,6 +2842,27 @@ def main():
         entry["per_config"][name] = viewer[key]
         entry["max_abs_err"] = max(entry["max_abs_err"],
                                    viewer[key]["max_abs_err"])
+    sharded, sh_paths = multi_gpu_slice(gt, cr, cs, kb, splats, cam, cfg,
+                                        device)
+    b1["multi_gpu"] = sharded
+    for i, entry in enumerate((b1, b2, b3, b4)):
+        paths = {p: n[i] for p, n in sh_paths.items() if n[i]}
+        entry["launches"] += sum(paths.values())
+        entry["launches_by_path"].update(paths)
+    b5["launches_by_path"]["multi-GPU paths"] = sum(n[4] for n in
+                                                    sh_paths.values())
+    # the kernels on the (1, 4) slabs' records, config 4's and
+    # scaling_bench's, beside the whole frame's
+    for entry, rec, err in (
+            (b1, sharded["slabs_3d"], "fwd_max_abs_err"),
+            (b2, sharded["slabs_3d"], "bwd_max_abs_err"),
+            (b3, sharded["slabs_2d"], "fwd_max_abs_err"),
+            (b4, sharded["slabs_2d"], "bwd_max_abs_err"),
+            (b1, sharded["config4"]["kernels"], "fwd_max_abs_err"),
+            (b2, sharded["config4"]["kernels"], "bwd_max_abs_err"),
+            (b1, sharded["scaling_bench"]["kernels"], "fwd_max_abs_err"),
+            (b2, sharded["scaling_bench"]["kernels"], "bwd_max_abs_err")):
+        entry["max_abs_err"] = max(entry["max_abs_err"], rec[err])
     log(json.dumps({"kernels": [b1, b2, b3, b4, b5]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

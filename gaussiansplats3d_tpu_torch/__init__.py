@@ -4,16 +4,18 @@ The JAX package beside it is the reference; this package imports neither
 JAX nor anything of it.  It ports the 3DGS render and its gradients:
 projection, tile binning and depth sort, the tile compositor forward and
 backward (hand-written CUDA kernels for Hopper, with plain PyTorch versions
-for CPU tensors) and image assembly; training on one GPU; and the 2DGS
+for CPU tensors) and image assembly; training; and the 2DGS
 surfel mode (``RenderConfig(render_mode_2d=True)``) with its own compositor
 kernels; scene-file IO (``load``/``save``: .ply, .splat, .ksplat, .spz,
 from paths and URLs, progressive loading, ``optimize_splat_data``) and
 ``bake_transform``; the Viewer (``Viewer``: multi-scene composition,
-render gating, the reveal fade, stereo, picking); and the tools
+render gating, the reveal fade, stereo, picking); the multi-device layer
+(``parallel``: a (splat, tile) mesh of torch.distributed ranks, the
+sharded render and training step, checkpoints); and the tools
 (``tools/``: training, rendering and converting scenes, the compositor
 ablation bench with its kernel, the stage profile, the card's parity
-gate, the acceptance configs).  Constructors put tensors on ``cuda``
-unless given ``device="cpu"``.
+gate, the acceptance configs, the scaling harness).  Constructors put
+tensors on ``cuda`` unless given ``device="cpu"``.
 """
 
 from . import io  # noqa: F401

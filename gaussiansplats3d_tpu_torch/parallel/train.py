@@ -1,5 +1,5 @@
-"""Differentiable splat optimization ("training") on one GPU (counterpart of
-the JAX package's ``parallel/train.py``).
+"""Differentiable splat optimization ("training") on one GPU or over a
+device mesh (counterpart of the JAX package's ``parallel/train.py``).
 
 Parameterization (standard 3DGS training form, as the JAX package's):
   - ``log_scales``    — scales = exp(log_scales) (positivity)
@@ -7,12 +7,15 @@ Parameterization (standard 3DGS training form, as the JAX package's):
   - ``quats``         — unnormalized; the renderer normalizes internally
   - ``rgb``, ``sh``   — raw
 
-A step renders the tile blocks through ``pipeline.render_tiles``, which
-routes as ``render()`` does (projection, binning, kernels B1 and B2 on a
-CUDA device; with ``cfg.render_mode_2d`` the surfel path, kernels B3 and
-B4), takes the masked mean squared error of the tile blocks and applies
-the optimizer.  The multi-GPU mesh is not ported
-yet: ``mesh`` must be None.
+Without a mesh, a step renders the tile blocks through
+``pipeline.render_tiles``, which routes as ``render()`` does (projection,
+binning, kernels B1 and B2 on a CUDA device; with ``cfg.render_mode_2d``
+the surfel path, kernels B3 and B4), takes the masked mean squared error
+of the tile blocks and applies the optimizer.  With a mesh, every rank
+renders its slab through ``sharded.sharded_render_tiles`` and takes the
+error over its slab of the targets; the slabs' error sums are summed over
+the tile group and divided by the whole mask's count (every rank holds
+the whole mask), so the loss is the single-device loss.
 """
 
 from __future__ import annotations
@@ -23,10 +26,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..core.types import Camera, RenderConfig, SplatData
 from ..render.pipeline import render_tiles
+from .mesh import SPLAT_AXIS, TILE_AXIS, mesh_coordinate, mesh_shape
+from .sharded import interleave_tile_order, sharded_render_tiles
 
 
 class SplatParams(nn.Module):
@@ -122,40 +128,69 @@ def image_to_tile_blocks(img: torch.Tensor, cfg: RenderConfig):
     return tiles, mask
 
 
+def _error_sum(chans: torch.Tensor, target_tiles: torch.Tensor,
+               tile_mask: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    trans = 1.0 - chans[:, -1]
+    rendered = torch.stack([chans[:, c] + trans * bg
+                            for c, bg in enumerate(cfg.background)], 1)
+    err = (rendered - target_tiles.permute(0, 2, 1)) ** 2 * tile_mask[:, None]
+    return err.sum()
+
+
 def tile_loss(chans: torch.Tensor, target_tiles: torch.Tensor,
               tile_mask: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
     """Mean squared error of composited tile blocks ``chans [T, NC + 1, P]``
     (alpha last, over ``cfg.background``) against ``target_tiles [T, P,
     3]``, over the pixels of ``tile_mask``."""
-    trans = 1.0 - chans[:, -1]
-    rendered = torch.stack([chans[:, c] + trans * bg
-                            for c, bg in enumerate(cfg.background)], 1)
-    err = (rendered - target_tiles.permute(0, 2, 1)) ** 2 * tile_mask[:, None]
-    return err.sum() / (tile_mask.sum() * 3.0)
+    return _error_sum(chans, target_tiles, tile_mask, cfg) / (
+        tile_mask.sum() * 3.0)
+
+
+def _grads(params: SplatParams):
+    grads = []
+    for p in params.parameters():
+        if p.grad is None:       # a field the render did not reach
+            p.grad = torch.zeros_like(p)
+        grads.append(p.grad)
+    return grads
 
 
 def make_train_step(cfg: RenderConfig, mesh, optimizer,
-                    route: str = "gather", slab_mode: str = "banded"):
-    """Build a train step on one device.
+                    route: str = "gather", slab_mode: str = "banded",
+                    exchange_capacity: Optional[int] = None):
+    """Build a train step.
 
     Returns ``step(state, camera, target_tiles, tile_mask) -> (state,
     metrics)`` with target_tiles/tile_mask from :func:`image_to_tile_blocks`
-    and metrics ``loss`` and ``grad_norm`` (the global norm of the
-    gradients, as optax's), 0-d tensors.  The step updates ``state`` in
-    place (the optimizer's own update) and returns it.  ``optimizer`` is a
-    factory of parameters -> ``torch.optim.Optimizer`` (:func:`adam`); it
-    builds the moments of a state that has none.  ``mesh``, ``route`` and
-    ``slab_mode`` belong to the multi-GPU path, not ported yet: None and
-    the defaults only.
-    """
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-GPU training (a device mesh) is not ported yet")
-    if route != "gather" or slab_mode != "banded":
-        raise NotImplementedError(
-            f"route={route!r}, slab_mode={slab_mode!r} belong to the "
-            "multi-GPU path, which is not ported yet")
+    (the whole image's, on every rank) and metrics ``loss`` and
+    ``grad_norm`` (the global norm of the gradients, as optax's), 0-d
+    tensors.  The step updates ``state`` in place (the optimizer's own
+    update) and returns it.  ``optimizer`` is a factory of parameters ->
+    ``torch.optim.Optimizer`` (:func:`adam`); it builds the moments of a
+    state that has none.
 
+    With ``mesh`` (a ``mesh.make_mesh``), every rank of it calls the step
+    with its own shard of the parameters (``sharded.device_put_sharded_
+    splats`` with ``route``, then :meth:`TrainState.create`): the render is
+    ``sharded.sharded_render_tiles`` with ``route``, ``slab_mode`` and
+    ``exchange_capacity``, the loss the single-device loss.  Under
+    'gather' the parameters are replicated over the tile axis and their
+    gradients all-reduced over the tile group; under 'a2a' each lives on
+    one rank.  ``grad_norm`` counts each parameter once; the optimizer
+    steps locally.  ``route``, ``slab_mode`` and ``exchange_capacity``
+    belong to the mesh.
+    """
+    if mesh is None:
+        if (route, slab_mode, exchange_capacity) != ("gather", "banded",
+                                                     None):
+            raise ValueError("route, slab_mode and exchange_capacity need "
+                             "a mesh")
+        return _single_step(cfg, optimizer)
+    return _mesh_step(cfg, mesh, optimizer, route, slab_mode,
+                      exchange_capacity)
+
+
+def _single_step(cfg: RenderConfig, optimizer):
     def step(state: TrainState, camera: Camera, target_tiles, tile_mask):
         params = state.params
         if state.opt_state is None:
@@ -164,14 +199,50 @@ def make_train_step(cfg: RenderConfig, mesh, optimizer,
         chans, _, _ = render_tiles(params.to_splats(), camera, cfg)
         loss = tile_loss(chans, target_tiles, tile_mask, cfg)
         loss.backward()
-        grads = []
-        for p in params.parameters():
-            if p.grad is None:       # a field the render did not reach
-                p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
-        grad_norm = torch.sqrt(sum((g * g).sum() for g in grads))
+        grad_norm = torch.sqrt(sum((g * g).sum() for g in _grads(params)))
         state.opt_state.step()
         state.step += 1
         return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    return step
+
+
+def _mesh_step(cfg: RenderConfig, mesh, optimizer, route: str,
+               slab_mode: str, exchange_capacity: Optional[int]):
+    _, t = mesh_shape(mesh)
+    _, j = mesh_coordinate(mesh)
+    tile_group = mesh.get_group(TILE_AXIS)
+    # the groups whose ranks hold different parameters
+    norm_groups = [mesh.get_group(SPLAT_AXIS)] + (
+        [tile_group] if route == "a2a" else [])
+
+    def step(state: TrainState, camera: Camera, target_tiles, tile_mask):
+        params = state.params
+        if state.opt_state is None:
+            state.opt_state = optimizer(params.parameters())
+        state.opt_state.zero_grad(set_to_none=True)
+        chans = sharded_render_tiles(
+            mesh, params.to_splats(), camera, cfg,
+            exchange_capacity=exchange_capacity, route=route,
+            slab_mode=slab_mode)
+        if slab_mode == "interleaved":
+            target_tiles = interleave_tile_order(target_tiles, t,
+                                                 cfg.tiles_x)
+            tile_mask = interleave_tile_order(tile_mask, t, cfg.tiles_x)
+        lt = chans.shape[0]
+        mine = slice(j * lt, (j + 1) * lt)
+        den = tile_mask.sum() * 3.0
+        num = _error_sum(chans, target_tiles[mine], tile_mask[mine], cfg)
+        # d(loss)/d(this slab) is that of num / den; the loss sums the
+        # slabs' numerators
+        (num / den).backward()
+        loss = num.detach().reshape(1).clone()
+        dist.all_reduce(loss, group=tile_group)
+        sq = sum((g * g).sum() for g in _grads(params)).reshape(1)
+        for group in norm_groups:
+            dist.all_reduce(sq, group=group)
+        state.opt_state.step()
+        state.step += 1
+        return state, {"loss": loss[0] / den, "grad_norm": torch.sqrt(sq[0])}
 
     return step

@@ -35,6 +35,12 @@ package's alignment sort; its bf16 packing of the non-position cotangents
 under ``mixed``/``packed`` is a TPU saving that the port does not copy.
 The support box (rx, ry) and the rects stay gradient-free.
 
+The sharded path bins one tile slab at a time (:func:`slab_window`): a
+band of whole tile rows (``tile_range``; tile ids relative to its first
+tile) or round-robin rows (``row_window``; tile ids in local rows,
+:func:`tile_bounds_strided`), with depth keys quantized against the
+global depth range (``depth_bounds``).
+
 S stays static, so nothing here waits for the device.
 """
 
@@ -226,33 +232,110 @@ def slot_layout_for(cfg: RenderConfig, n: int):
     return lanes, aux, pad
 
 
-def tile_bounds(xs, ys, rx, ry, mask, cfg: RenderConfig):
+def _tile_of(v, cfg: RenderConfig):
+    # clamp before the integer cast: the JAX package's cast saturates
+    return torch.clamp(torch.floor(v / float(cfg.tile_size)), -2.0 ** 30,
+                       2.0 ** 30).to(torch.int64)
+
+
+def tile_bounds(xs, ys, rx, ry, mask, cfg: RenderConfig, ty_lo: int = 0,
+                ty_hi: int | None = None):
     """Inclusive tile bounds [tx0, tx1] x [ty0, ty1] per splat (int64) and
-    the pair count (0 for culled splats or rects off the viewport)."""
-    ts = float(cfg.tile_size)
-
-    def tile_of(v):
-        # clamp before the integer cast: the JAX package's cast saturates
-        return torch.clamp(torch.floor(v / ts), -2.0 ** 30,
-                           2.0 ** 30).to(torch.int64)
-
-    tx0, tx1 = tile_of(xs - rx), tile_of(xs + rx)
-    ty0, ty1 = tile_of(ys - ry), tile_of(ys + ry)
-    inside = (mask & (tx1 >= 0) & (ty1 >= 0)
-              & (tx0 < cfg.tiles_x) & (ty0 < cfg.tiles_y))
+    the pair count (0 for culled splats or rects off the viewport, or off
+    the tile-row window ``[ty_lo, ty_hi)`` when given: a banded slab of
+    the sharded path)."""
+    if ty_hi is None:
+        ty_hi = cfg.tiles_y
+    tx0, tx1 = _tile_of(xs - rx, cfg), _tile_of(xs + rx, cfg)
+    ty0, ty1 = _tile_of(ys - ry, cfg), _tile_of(ys + ry, cfg)
+    inside = (mask & (tx1 >= 0) & (ty1 >= ty_lo)
+              & (tx0 < cfg.tiles_x) & (ty0 < ty_hi))
     tx0 = torch.clamp(tx0, 0, cfg.tiles_x - 1)
     tx1 = torch.clamp(tx1, 0, cfg.tiles_x - 1)
-    ty0 = torch.clamp(ty0, 0, cfg.tiles_y - 1)
-    ty1 = torch.clamp(ty1, 0, cfg.tiles_y - 1)
+    ty0 = torch.clamp(ty0, ty_lo, ty_hi - 1)
+    ty1 = torch.clamp(ty1, ty_lo, ty_hi - 1)
     counts = torch.where(inside, (tx1 - tx0 + 1) * (ty1 - ty0 + 1),
                          torch.zeros_like(tx0))
     return tx0, tx1, ty0, ty1, counts
 
 
-def _lane_tiles(cfg: RenderConfig, counts, tx0, ty0, wt, ht):
-    """Per-lane (tile id, valid) and the lane-coverable 'small' predicate."""
+def strided_row_range(ty0, ty1, row_start: int, row_stride: int):
+    """Local row range [lo, hi] of a global tile-row rect [ty0, ty1] under
+    round-robin ownership (the owner holds rows {row_start + r *
+    row_stride}); empty iff hi < lo.  The one source of this ceil/floor
+    arithmetic: the strided rects (:func:`tile_bounds_strided`) and the
+    sharded exchange's touch filter both call it, so the filter stays a
+    superset of the binning window.  Integer ``//`` floors, so it is exact
+    for rows below ``row_start`` too."""
+    lo = -((row_start - ty0) // row_stride)          # ceil((ty0 - j) / s)
+    hi = (ty1 - row_start) // row_stride             # floor((ty1 - j) / s)
+    return lo, hi
+
+
+def tile_bounds_strided(xs, ys, rx, ry, mask, cfg: RenderConfig,
+                        row_start: int, row_stride: int, rows_per: int):
+    """Tile bounds in the local rows of a strided (round-robin) slab that
+    owns global rows {row_start + r * row_stride}, r < rows_per: a global
+    rect [ty0, ty1] maps to the local rows of :func:`strided_row_range`,
+    so the expansion, keys and sort run unchanged on the local grid.
+    Returns (tx0, tx1, ty0_l, ty1_l, counts) as :func:`tile_bounds`, with
+    counts 0 where no owned row is hit."""
+    tx0, tx1 = _tile_of(xs - rx, cfg), _tile_of(xs + rx, cfg)
+    ty0u, ty1u = _tile_of(ys - ry, cfg), _tile_of(ys + ry, cfg)
+    # the viewport test reads the unclipped rows: clipping first would fold
+    # a rect wholly off the screen onto its first or last row
+    ty0_l, ty1_l = strided_row_range(
+        torch.clamp(ty0u, 0, cfg.tiles_y - 1),
+        torch.clamp(ty1u, 0, cfg.tiles_y - 1), row_start, row_stride)
+    inside = (mask & (tx1 >= 0) & (tx0 < cfg.tiles_x)
+              & (ty1u >= 0) & (ty0u < cfg.tiles_y)
+              & (ty1_l >= ty0_l) & (ty1_l >= 0) & (ty0_l < rows_per))
+    tx0 = torch.clamp(tx0, 0, cfg.tiles_x - 1)
+    tx1 = torch.clamp(tx1, 0, cfg.tiles_x - 1)
+    ty0_l = torch.clamp(ty0_l, 0, rows_per - 1)
+    ty1_l = torch.clamp(ty1_l, 0, rows_per - 1)
+    counts = torch.where(inside, (tx1 - tx0 + 1) * (ty1_l - ty0_l + 1),
+                         torch.zeros_like(tx0))
+    return tx0, tx1, ty0_l, ty1_l, counts
+
+
+def slab_window(cfg: RenderConfig, tile_range: tuple | None,
+                row_window: tuple | None):
+    """``(bounds, num_tiles, tile_lo)`` of a binning window: ``bounds(xs,
+    ys, rx, ry, mask)`` is :func:`tile_bounds` over the whole image or the
+    banded ``tile_range = (tile_lo, num_local_tiles)`` (whole tile rows;
+    tile ids come out relative to tile_lo), or :func:`tile_bounds_strided`
+    over ``row_window = (row_start, row_stride, rows_per)`` (tile ids in
+    local rows)."""
+    if row_window is not None:
+        if tile_range is not None:
+            raise ValueError("row_window replaces tile_range")
+        row_start, row_stride, rows_per = row_window
+
+        def strided(xs, ys, rx, ry, mask):
+            return tile_bounds_strided(xs, ys, rx, ry, mask, cfg, row_start,
+                                       row_stride, rows_per)
+        return strided, rows_per * cfg.tiles_x, 0
+    if tile_range is None:
+        tile_lo, num_tiles = 0, cfg.num_tiles
+    else:
+        tile_lo, num_tiles = tile_range
+        if num_tiles % cfg.tiles_x or tile_lo % cfg.tiles_x:
+            raise ValueError(f"tile_range {tile_range} must cover whole "
+                             f"tile rows of {cfg.tiles_x} tiles")
+    ty_lo = tile_lo // cfg.tiles_x
+    ty_hi = ty_lo + num_tiles // cfg.tiles_x
+
+    def banded(xs, ys, rx, ry, mask):
+        return tile_bounds(xs, ys, rx, ry, mask, cfg, ty_lo, ty_hi)
+    return banded, num_tiles, tile_lo
+
+
+def _lane_tiles(cfg: RenderConfig, counts, tx0, ty0, wt, ht, tile_lo: int):
+    """Per-lane (tile id, valid) and the lane-coverable 'small' predicate;
+    tile ids relative to ``tile_lo``."""
     tiles_x = cfg.tiles_x
-    tile0 = ty0 * tiles_x + tx0
+    tile0 = ty0 * tiles_x + tx0 - tile_lo
     if cfg.lanes == 1:
         small = counts == 1
         return small, [(tile0, small)]
@@ -298,35 +381,35 @@ def _record_fields(proj: ProjectedSplats, cfg: RenderConfig, rx, ry):
                                 rad_round_u8(ry)]
 
 
-def check_unsharded(tile_range, depth_bounds, row_window) -> None:
-    """Raise for the multi-GPU binning arguments, which are not ported."""
-    if tile_range is not None or depth_bounds is not None \
-            or row_window is not None:
-        raise NotImplementedError(
-            "sharded binning (tile_range/depth_bounds/row_window) is not "
-            "ported yet")
-
-
 def expand_sort(cfg: RenderConfig, tx0, ty0, wt, ht, counts, depth_q,
-                fields, opa_row: int, carry_slot: bool):
+                fields, opa_row: int, carry_slot: bool,
+                num_tiles: int | None = None, tile_lo: int = 0,
+                aux_capacity: int | None = None):
     """Expand splats into (tile, splat) pair slots, sort the slots by
     (tile, quantized depth) and, with ``carry_slot``, slot id on ties, and
     gather the ``[N]`` record ``fields`` into that order.
 
-    ``tx0``/``ty0``/``wt``/``ht``/``counts`` are the rects of
-    :func:`tile_bounds`.  Returns ``(records [F, S], tile_starts,
-    tile_counts, total_pairs, overflow)``; row ``opa_row`` of records is 0
-    at every slot outside the tiles' windows.  The gather is
-    differentiable: its backward scatter-adds each pair's cotangent into
-    its source splat.
+    ``tx0``/``ty0``/``wt``/``ht``/``counts`` are the rects of one of
+    :func:`slab_window`'s bounds; tile ids are ``ty0 * tiles_x + tx0 -
+    tile_lo`` over ``num_tiles`` tiles (default: the whole image), and
+    ``aux_capacity`` overrides the aux slots of :func:`slot_layout_for`.
+    Returns ``(records [F, S], tile_starts, tile_counts, total_pairs,
+    overflow)``; row ``opa_row`` of records is 0 at every slot outside the
+    tiles' windows.  The gather is differentiable: its backward
+    scatter-adds each pair's cotangent into its source splat.
     """
     dev = depth_q.device
     n = depth_q.shape[0]
-    num_tiles = cfg.num_tiles
+    if num_tiles is None:
+        num_tiles = cfg.num_tiles
     lanes, aux_cap, pad = slot_layout_for(cfg, n)
+    if aux_capacity is not None:
+        aux_cap = aux_capacity
+        pad = (-(lanes * n + aux_cap)) % CHUNK
     s_total = lanes * n + aux_cap + pad
 
-    small, lane_defs = _lane_tiles(cfg, counts, tx0, ty0, wt, ht)
+    small, lane_defs = _lane_tiles(cfg, counts, tx0, ty0, wt, ht,
+                                   tile_lo)
     big = (counts >= 1) & ~small
     counts_aux = torch.where(big, counts, torch.zeros_like(counts))
     total_aux = counts_aux.sum()
@@ -361,7 +444,7 @@ def expand_sort(cfg: RenderConfig, tx0, ty0, wt, ht, counts, depth_q,
         rank = iota_a - offs_c[owner]
         bw = torch.clamp(wt[sid], min=1)
         tiles.append((ty0[sid] + rank // bw) * cfg.tiles_x
-                     + tx0[sid] + rank % bw)
+                     + tx0[sid] + rank % bw - tile_lo)
         valids.append(iota_a < torch.clamp(covered, max=aux_cap))
         depths.append(depth_q[sid])
         srcs.append(sid)
@@ -407,14 +490,21 @@ def expand_sort(cfg: RenderConfig, tx0, ty0, wt, ht, counts, depth_q,
 def bin_sort_records(proj: ProjectedSplats, cfg: RenderConfig,
                      tile_range: tuple | None = None,
                      depth_bounds: tuple | None = None,
+                     aux_capacity: int | None = None,
                      row_window: tuple | None = None) -> SortedPairs:
     """Expand splats into depth-sorted per-tile pair records.
 
-    ``tile_range``, ``depth_bounds`` and ``row_window`` belong to the
-    multi-GPU path, which is not ported yet.
+    The sharded path's slab arguments (:func:`slab_window`): ``tile_range =
+    (tile_lo, num_local_tiles)``, a band of whole tile rows, with tile ids
+    relative to tile_lo; or ``row_window = (row_start, row_stride,
+    rows_per)``, round-robin rows, with tile ids in local rows.
+    ``depth_bounds = (dmin, dmax)`` quantizes depth against the global range
+    (``projection.quantize_depth``); ``aux_capacity`` overrides the aux
+    slots of :func:`slot_layout_for`.
     """
-    check_unsharded(tile_range, depth_bounds, row_window)
-    depth_q = quantize_depth(proj.depth, proj.mask, cfg.sort_bits)
+    bounds, num_tiles, tile_lo = slab_window(cfg, tile_range, row_window)
+    depth_q = quantize_depth(proj.depth, proj.mask, cfg.sort_bits,
+                             depth_bounds)
     # The support box is a hard, gradient-free cutoff.
     rx, ry = proj.rx.detach(), proj.ry.detach()
     xs, ys = proj.xs.detach(), proj.ys.detach()
@@ -423,11 +513,12 @@ def bin_sort_records(proj: ProjectedSplats, cfg: RenderConfig,
         rx, ry = rad_round_u8(rx), rad_round_u8(ry)
         scale = px_scale_for(cfg)
         xs, ys = px_round(xs, scale), px_round(ys, scale)
-    tx0, tx1, ty0, ty1, counts = tile_bounds(xs, ys, rx, ry, proj.mask, cfg)
+    tx0, tx1, ty0, ty1, counts = bounds(xs, ys, rx, ry, proj.mask)
     fields = _record_fields(proj, cfg, rx, ry)
     records, starts, tcounts, total, overflow = expand_sort(
         cfg, tx0, ty0, tx1 - tx0 + 1, ty1 - ty0 + 1, counts, depth_q, fields,
-        opa_row=len(fields) - 3, carry_slot=not cfg.forward_only)
+        opa_row=len(fields) - 3, carry_slot=not cfg.forward_only,
+        num_tiles=num_tiles, tile_lo=tile_lo, aux_capacity=aux_capacity)
     return SortedPairs(records=records, tile_starts=starts,
                        tile_counts=tcounts, total_pairs=total,
                        overflow=overflow)

@@ -172,6 +172,19 @@ def composite_fwd_cuda(records, tile_starts, tile_counts, tile_ids,
     return chans, logt, exit_k
 
 
+def tile_ids_from_base(tile_base, num_tiles: int, device) -> torch.Tensor:
+    """The ``[num_tiles]`` int32 global tile ids a compositor call places
+    its tiles at: ``tile_base + arange(num_tiles)`` for an int (the whole
+    image from 0, or a banded slab), or ``tile_base`` itself, a
+    ``[num_tiles]`` int32 tensor (an interleaved slab's rows)."""
+    if isinstance(tile_base, torch.Tensor):
+        if tile_base.shape != (num_tiles,) or tile_base.dtype != torch.int32:
+            raise ValueError(f"tile ids must be [{num_tiles}] int32")
+        return tile_base.to(device)
+    return torch.arange(tile_base, tile_base + num_tiles, dtype=torch.int32,
+                        device=device)
+
+
 def _tile_origins(tile_ids, cfg: RenderConfig):
     """Pixel x and y of each tile's corner, [G] float32 each."""
     ts = float(cfg.tile_size)

@@ -27,27 +27,28 @@ import torch
 
 from ..core.types import Camera, RenderConfig, SplatData
 from .binning import SortedPairs, bin_sort_records
-from .cuda_rasterize import composite_tiles
+from .cuda_rasterize import composite_tiles, tile_ids_from_base
 from .projection import project_splats
 from .surfel import surfel_tiles
 
 
-def _composite(cfg: RenderConfig, pairs: SortedPairs) -> torch.Tensor:
-    tile_ids = torch.arange(cfg.num_tiles, dtype=torch.int32,
-                            device=pairs.records.device)
-    chans, _, _ = composite_tiles(cfg, pairs.records, pairs.tile_starts,
-                                  pairs.tile_counts, tile_ids)
-    return chans
-
-
-def composite_sorted(cfg: RenderConfig, pairs: SortedPairs) -> torch.Tensor:
+def composite_sorted(cfg: RenderConfig, pairs: SortedPairs, tile_arg=0,
+                     num_tiles: int | None = None) -> torch.Tensor:
     """The tile compositor over a SortedPairs record set: ``chans [T, NC +
     1, P]``, rows 0..NC-1 the record channels, row NC the alpha.
-    Differentiable with respect to ``pairs.records`` (B2 backward)."""
+    Differentiable with respect to ``pairs.records`` (B2 backward).  The
+    tiles' global ids are ``tile_arg + arange(num_tiles)`` for an int
+    (the whole image from 0, or a banded slab), or ``tile_arg`` itself,
+    ``[num_tiles]`` int32 (an interleaved slab); ``num_tiles`` defaults to
+    the image's."""
     if cfg.return_depth and pairs.num_channels != 4:
         raise ValueError("cfg.return_depth needs pairs binned with it")
     cfg.check_backend(pairs.records.device)
-    return _composite(cfg, pairs)
+    tile_ids = tile_ids_from_base(tile_arg, num_tiles or cfg.num_tiles,
+                                  pairs.records.device)
+    chans, _, _ = composite_tiles(cfg, pairs.records, pairs.tile_starts,
+                                  pairs.tile_counts, tile_ids)
+    return chans
 
 
 def assemble_image(chans: torch.Tensor, cfg: RenderConfig):
@@ -97,7 +98,7 @@ def render_tiles(splats: SplatData, camera: Camera, cfg: RenderConfig,
                           scene_opacities, scene_visibility,
                           fade_params=fade_params)
     pairs = bin_sort_records(proj, cfg)
-    return _composite(cfg, pairs), pairs.total_pairs, pairs.overflow
+    return composite_sorted(cfg, pairs), pairs.total_pairs, pairs.overflow
 
 
 def render(splats: SplatData, camera: Camera, cfg: RenderConfig,

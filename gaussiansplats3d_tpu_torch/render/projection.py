@@ -258,14 +258,22 @@ def project_splats(splats: SplatData, camera: Camera, cfg: RenderConfig,
 
 
 def quantize_depth(depth: torch.Tensor, mask: torch.Tensor, bits: int,
-                   ) -> torch.Tensor:
+                   depth_bounds: tuple | None = None) -> torch.Tensor:
     """Depth -> integer bucket like the reference sorter's range map:
     ``floor((d - min) * (nbuckets / span))``, evaluated in float32 in that
     order (any other order shifts buckets).  Invisible splats get the
-    maximum bucket.  Returns int64."""
-    big = 3.0e38
-    dmin = torch.where(mask, depth, torch.full_like(depth, big)).min()
-    dmax = torch.where(mask, depth, torch.full_like(depth, -big)).max()
+    maximum bucket.  ``depth_bounds`` ``(dmin, dmax)`` (floats or 0-d
+    tensors) replaces the visible splats' own range: the sharded path
+    passes the globally reduced bounds so every shard buckets alike.
+    Returns int64."""
+    if depth_bounds is None:
+        big = 3.0e38
+        dmin = torch.where(mask, depth, torch.full_like(depth, big)).min()
+        dmax = torch.where(mask, depth, torch.full_like(depth, -big)).max()
+    else:
+        dmin, dmax = (torch.as_tensor(b, dtype=torch.float32,
+                                      device=depth.device)
+                      for b in depth_bounds)
     span = torch.clamp(dmax - dmin, min=1e-20)
     nbuckets = (1 << bits) - 1
     safe = torch.where(mask, depth, dmin)

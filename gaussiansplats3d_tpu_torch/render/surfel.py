@@ -31,9 +31,9 @@ from ..constants import CLIP_FACTOR
 from ..core import math3d
 from ..core.sh import eval_sh_color
 from ..core.types import Camera, RenderConfig, SplatData
-from .binning import (check_unsharded, expand_sort, f16_round, tile_bounds,
-                      u16r_round)
+from .binning import expand_sort, f16_round, slab_window, u16r_round
 from .compositing import pixel_grid
+from .cuda_rasterize import tile_ids_from_base
 from .cuda_surfel import composite_surfel_tiles, surfel_alpha
 from .projection import quantize_depth
 
@@ -307,18 +307,15 @@ def bin_sort_surfels(sp: SurfelProjection, cfg: RenderConfig,
     are rounded through float16 (straight-through); T, the center and the
     depth channel stay exact, and rx/ry go through the u16 1/16-px codec,
     which is exact on their grid.  Gradients pass straight through to every
-    row but rx/ry (detached), in float32.  ``tile_range``, ``depth_bounds``,
-    ``aux_capacity`` and ``row_window`` belong to the multi-GPU path, not
-    ported yet.
+    row but rx/ry (detached), in float32.  ``tile_range``, ``row_window``,
+    ``depth_bounds`` and ``aux_capacity`` are the sharded path's slab
+    arguments, as in ``binning.bin_sort_records``.
     """
-    check_unsharded(tile_range, depth_bounds, row_window)
-    if aux_capacity is not None:
-        raise NotImplementedError("aux_capacity belongs to the multi-GPU "
-                                  "path, which is not ported yet")
+    bounds, num_tiles, tile_lo = slab_window(cfg, tile_range, row_window)
     rx, ry = sp.rx.detach(), sp.ry.detach()
-    tx0, tx1, ty0, ty1, counts = tile_bounds(
-        sp.xs.detach(), sp.ys.detach(), rx, ry, sp.mask, cfg)
-    depth_q = quantize_depth(sp.depth, sp.mask, cfg.sort_bits)
+    tx0, tx1, ty0, ty1, counts = bounds(sp.xs.detach(), sp.ys.detach(), rx,
+                                        ry, sp.mask)
+    depth_q = quantize_depth(sp.depth, sp.mask, cfg.sort_bits, depth_bounds)
     chans = _channels(sp, cfg)
     opa = sp.opacity
     if cfg.record_precision != "f32":
@@ -328,24 +325,25 @@ def bin_sort_surfels(sp: SurfelProjection, cfg: RenderConfig,
                                                     u16r_round(ry)]
     return expand_sort(cfg, tx0, ty0, tx1 - tx0 + 1, ty1 - ty0 + 1, counts,
                        depth_q, fields, opa_row=11 + len(chans),
-                       carry_slot=True)
+                       carry_slot=True, num_tiles=num_tiles, tile_lo=tile_lo,
+                       aux_capacity=aux_capacity)
 
 
 def composite_surfels_sorted(cfg: RenderConfig, records, tile_starts,
-                             tile_counts, tile_base, num_tiles: int):
+                             tile_counts, tile_base=0,
+                             num_tiles: int | None = None):
     """The surfel tile compositor over :func:`bin_sort_surfels`' records:
     ``(tile_colors [T, P, NC], tile_logtrans [T, P])``, differentiable with
-    respect to ``records`` (kernel B4 backward on a CUDA device).  Only the
-    whole image (``tile_base`` 0, ``num_tiles`` = cfg.num_tiles): the
-    tile-sharded slabs belong to the multi-GPU path, not ported yet."""
-    if tile_base != 0 or num_tiles != cfg.num_tiles:
-        raise NotImplementedError("tile-sharded surfel compositing is not "
-                                  "ported yet")
+    respect to ``records`` (kernel B4 backward on a CUDA device).  The
+    tiles' global ids (their pixel placement) are ``tile_base + arange(
+    num_tiles)`` for an int ``tile_base`` (the whole image, or a banded
+    slab), or ``tile_base`` itself as a ``[num_tiles]`` int32 tensor (an
+    interleaved slab); ``num_tiles`` defaults to the image's."""
     if cfg.return_depth != (records.shape[0] == 18):
         raise ValueError("cfg.return_depth needs records binned with it")
     cfg.check_backend(records.device)
-    tile_ids = torch.arange(num_tiles, dtype=torch.int32,
-                            device=records.device)
+    tile_ids = tile_ids_from_base(tile_base, num_tiles or cfg.num_tiles,
+                                  records.device)
     colors, logt, _ = composite_surfel_tiles(cfg, records, tile_starts,
                                              tile_counts, tile_ids)
     return colors, logt
@@ -370,6 +368,5 @@ def surfel_tiles(splats: SplatData, camera: Camera, cfg: RenderConfig,
     sp = project_surfels(splats, camera, cfg, transforms, scene_indices,
                          scene_opacities, scene_visibility)
     records, starts, counts, total, overflow = bin_sort_surfels(sp, cfg)
-    colors, logt = composite_surfels_sorted(cfg, records, starts, counts, 0,
-                                            cfg.num_tiles)
+    colors, logt = composite_surfels_sorted(cfg, records, starts, counts)
     return chans_from_colors_logt(colors, logt), total, overflow

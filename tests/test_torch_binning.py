@@ -249,11 +249,19 @@ def test_binning_gradients_match_jax(prec, depth):
 
 
 def test_sharded_arguments_raise():
+    """The slab arguments bin (tests/test_torch_sharded.py holds them to
+    the JAX package's); a window that is not whole tile rows, or both
+    kinds of window at once, raises."""
     s_t = gt.SplatData.from_numpy(*scene_arrays(100, seed=25), device="cpu")
     cam = gt.Camera.look_at((2.5, 1.5, 2.5), (0, 0, 0), device="cpu")
     cfg = gt.RenderConfig(width=256, height=192)
     proj = proj_t.project_splats(s_t, cam, cfg)
-    for kw in (dict(tile_range=(0, 8)), dict(depth_bounds=(0.0, 1.0)),
-               dict(row_window=(0, 2, 3))):
-        with pytest.raises(NotImplementedError):
+    for kw, tiles in ((dict(tile_range=(0, 8)), 8),
+                      (dict(depth_bounds=(0.0, 1.0)), cfg.num_tiles),
+                      (dict(row_window=(0, 2, 3)), 24)):
+        pairs = bin_t.bin_sort_records(proj, cfg, **kw)
+        assert pairs.tile_starts.shape == (tiles,)
+    for kw in (dict(tile_range=(4, 8)), dict(tile_range=(0, 12)),
+               dict(tile_range=(0, 8), row_window=(0, 2, 3))):
+        with pytest.raises(ValueError):
             bin_t.bin_sort_records(proj, cfg, **kw)

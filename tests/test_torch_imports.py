@@ -1,6 +1,7 @@
 """The port stands alone: importing it, its viewer, its progressive
-loader and URL fetch, and its render_scene and create_ksplat tools loads
-neither JAX nor the JAX package (checked in a fresh interpreter, since
+loader and URL fetch, its multi-device layer, and its render_scene,
+create_ksplat and scaling_bench tools loads neither JAX nor the JAX
+package (checked in a fresh interpreter, since
 this test process has imported both)."""
 
 import json
@@ -18,6 +19,8 @@ import gaussiansplats3d_tpu_torch.io.progressive
 import gaussiansplats3d_tpu_torch.io.fetch
 import gaussiansplats3d_tpu_torch.tools.render_scene
 import gaussiansplats3d_tpu_torch.tools.create_ksplat
+import gaussiansplats3d_tpu_torch.parallel
+import gaussiansplats3d_tpu_torch.tools.scaling_bench
 print(json.dumps(sorted(m for m in sys.modules
                         if m in ("jax", "gaussiansplats3d_tpu")
                         or m.startswith(("jax.", "gaussiansplats3d_tpu.")))))

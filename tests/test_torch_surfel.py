@@ -389,15 +389,23 @@ def test_render_batch_2d_and_unported_arguments():
     assert torch.equal(outs["color"][0], gt.render(s_t, cam_t, cfg)["color"])
     assert float(outs["alpha"][0].max()) > 0.5
     assert float(outs["alpha"][1].abs().max()) == 0.0
+    # the multi-GPU slab arguments bin and composite a slab
+    # (tests/test_torch_sharded.py holds them to the JAX package's)
     sp = surfel_t.project_surfels(s_t, cam_t, cfg)
-    for kw in (dict(tile_range=(0, 3)), dict(depth_bounds=(0.0, 1.0)),
-               dict(row_window=(0, 2, 3)), dict(aux_capacity=4096)):
-        with pytest.raises(NotImplementedError):
-            surfel_t.bin_sort_surfels(sp, cfg, **kw)
+    tx = cfg.tiles_x
+    for kw in (dict(tile_range=(0, tx)), dict(depth_bounds=(0.0, 1.0)),
+               dict(row_window=(0, 2, 1)), dict(aux_capacity=4096)):
+        starts = surfel_t.bin_sort_surfels(sp, cfg, **kw)[1]
+        assert starts.shape == ((tx,) if {"tile_range", "row_window"}
+                                & set(kw) else (cfg.num_tiles,))
+    with pytest.raises(ValueError):
+        surfel_t.bin_sort_surfels(sp, cfg, tile_range=(1, tx))
+    recs, starts, counts, _, _ = surfel_t.bin_sort_surfels(
+        sp, cfg, tile_range=(tx, tx))
+    colors, _ = surfel_t.composite_surfels_sorted(cfg, recs, starts, counts,
+                                                  tx, tx)
+    assert colors.shape[0] == tx
     recs, starts, counts, _, _ = surfel_t.bin_sort_surfels(sp, cfg)
-    with pytest.raises(NotImplementedError):
-        surfel_t.composite_surfels_sorted(cfg, recs, starts, counts, 3,
-                                          cfg.num_tiles)
     with pytest.raises(ValueError):
         surfel_t.composite_surfels_sorted(cfg.replace(return_depth=True),
                                           recs, starts, counts, 0,

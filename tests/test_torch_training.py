@@ -101,10 +101,12 @@ def test_train_step_matches_jax():
         d = np.abs(a - b).ravel() / (3 * lr)
         assert np.quantile(d, 0.99) <= 2e-2, (f, np.quantile(d, 0.99))
         assert d.max() <= 1.0, f
-    with pytest.raises(NotImplementedError):
-        train_t.make_train_step(cfg_t, object(), train_t.adam(lr))
-    with pytest.raises(NotImplementedError):
-        train_t.make_train_step(cfg_t, None, train_t.adam(lr), route="a2a")
+    # the mesh's own arguments need a mesh (tests/test_torch_sharded.py
+    # drives the mesh path)
+    for kw in (dict(route="a2a"), dict(slab_mode="interleaved"),
+               dict(exchange_capacity=256)):
+        with pytest.raises(ValueError):
+            train_t.make_train_step(cfg_t, None, train_t.adam(lr), **kw)
 
 
 def _densify_inputs(n, seed, tied_dead):
