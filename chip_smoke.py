@@ -10,6 +10,8 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    torch.version.cuda, nvcc --version; every CUDA kernel of the port is
    built from csrc/ with nvcc for sm_90a (one nvcc per source, started
    together), and ptxas' registers / shared memory / spills are printed;
+   beside them the native scene decoders (csrc/ingest.cpp) with g++,
+   whose failure fails the phase, and the library must load;
 2. every kernel against its plain PyTorch version, on the card, at the
    shapes the main paths give it (the port's own binning of the main-path
    scene, in each configuration of phases 3 and 5), by error mass; then
@@ -82,8 +84,14 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    their times and bounds, on the records of a 4K viewer frame (3D and
    2D) and of render_scene's 1280x720 frame; the viewer's overhead over
    render(), the stereo pair, load-to-first-frame, the progressive load's
-   snapshots and times, picking and peak memory.  The kernels line's
-   launches of each viewer path are the sums of the counters' readings;
+   snapshots and times, picking and peak memory.  The decode counters
+   (io/native.py) are zeroed around S1's add_splat_scene and S2's
+   progressive load: every decode there must run native; S2's stream then
+   runs through a ProgressiveLoader alone twice, with the native decoders
+   and with GS_NATIVE=0, each split into the buffer copies for the
+   header, the header parses, the decodes and the rest.  The kernels
+   line's launches of each viewer path are the sums of the counters'
+   readings;
 11. the multi-GPU slice on one card (the host has one H100, and NCCL
    takes one rank a GPU, so the world has one rank): (a) the NCCL process
    group at world size 1 (parallel.initialize_distributed) and a 1x1
@@ -108,9 +116,18 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    whose 1x1 shape runs in the one-rank world (the others are skipped,
    and it says so), then B1 and B2 against their plain versions on its
    1x1 step's records.  Each path's launches are the
-   counters' readings around its steps.
+   counters' readings around its steps;
+12. the native scene decoders at full size: S1's 1M .ksplat at levels 0,
+   1 and 2, S2's 500k .ply, accept2's 1M .splat and accept3's 5M SH2
+   .ksplat (tools/bench_configs.py's scenes), each written from its seeded
+   scene and decoded natively and with GS_NATIVE=0 (the decode counters
+   checked each time): both host times, and per field the error mass of
+   native against numpy (max and p99.9 of |d|, the share over 1e-6);
+   raises on any |d| over 1e-6 and on any difference in colors or
+   opacities.
 
-Prints a {"kernels": [...]} line, and last {"ok": true, "device": ...}.
+Prints a {"native": ...} line (the build, phase 10's loads, phase 12), a
+{"kernels": [...]} line, and last {"ok": true, "device": ...}.
 It has no CPU mode: without a CUDA device it exits 1.
 """
 
@@ -123,6 +140,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -243,6 +261,19 @@ N_CONFIG4 = 16_000_000
 # scaling_bench's command line: its 200k scene at 512x256, SH1, tile 16
 SCALING_ARGV = ["200000", "--meshes", "1x1,2x1,2x2,4x2", "--iters", "3"]
 CONFIG4_STEPS = 3
+# Phase 12, the native scene decoders at full size: S1 at levels 0-2, S2,
+# accept2's .splat and accept3's .ksplat (tools/bench_configs.py), each
+# decoded natively and in numpy; native may differ from numpy by the last
+# bits of exp, sqrt and divisions, never by more than this, and colors and
+# opacities not at all
+N_ACCEPT2, N_ACCEPT3 = 1_000_000, 5_000_000
+NATIVE_ATOL = 1e-6
+DECODE_REPS = 2
+
+
+# what the {"native": ...} line reports: the build (phase 1), the viewer's
+# loads (phase 10) and the decoders at full size (phase 12)
+NATIVE = {}
 
 
 def log(*a):
@@ -291,9 +322,22 @@ def toolchain(gt_build):
     except ImportError:
         log("triton not installed")
     t0 = time.perf_counter()
-    gt_build.build_all()
-    log(f"built {len(gt_build.KERNELS)} kernel(s) in "
-        f"{time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        # the native decoders' g++ build beside the nvcc builds
+        host = pool.submit(lambda: (gt_build.build_host("ingest"),
+                                    time.perf_counter() - t0))
+        gt_build.build_all()
+        log(f"built {len(gt_build.KERNELS)} kernel(s) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        lib, host_s = host.result()    # raises if g++ failed
+    from gaussiansplats3d_tpu_torch.io import native
+    if native.get_lib() is None:
+        raise RuntimeError(f"native decoders: {native.status()}")
+    log(f"built the native decoders {lib.name} ({gt_build.gxx_identity()}, "
+        f"{' '.join(gt_build.HOST_FLAGS)}) in {host_s:.1f} s; "
+        f"{native.status()}")
+    NATIVE["build_s"], NATIVE["library"] = host_s, lib.name
+    NATIVE["gxx"] = gt_build.gxx_identity()
     for name in gt_build.KERNELS:
         for line in gt_build.ptxas_report(name).splitlines():
             if ("registers" in line or "spill" in line
@@ -1875,9 +1919,10 @@ def predicted_fade_frames(vr):
 
 
 def load_scenes(gt, tally, v, s0, tmp, chk):
-    """S0 in memory, S1 by path, S2 progressively; the load timings and
-    S2's partial frames."""
+    """S0 in memory, S1 by path, S2 progressively; the load timings, S2's
+    partial frames, every decode native."""
     from gaussiansplats3d_tpu_torch import io as gio
+    from gaussiansplats3d_tpu_torch.io import native
     res = {}
     v.add_splat_scene(s0)
     out = tally("viewer_3d", v.render, ONE_3D, "viewer S0 frame")
@@ -1890,6 +1935,7 @@ def load_scenes(gt, tally, v, s0, tmp, chk):
     res["s1_write_s"] = time.perf_counter() - t0
     del s1
     torch.cuda.synchronize()
+    native.reset_counts()
     t0 = time.perf_counter()
     v.add_splat_scene(s1_path, position=(3.2, 0.0, 0.0),
                       rotation=(0.0, 0.38268343, 0.0, 0.92387953),
@@ -1897,11 +1943,14 @@ def load_scenes(gt, tally, v, s0, tmp, chk):
     res["s1_add_ms"] = (time.perf_counter() - t0) * 1e3
     out = tally("viewer_3d", v.render, ONE_3D, "viewer S0+S1 frame")
     res["s1_load_to_first_frame_ms"] = (time.perf_counter() - t0) * 1e3
+    res["s1_decodes"] = expect_decodes("S1's add_splat_scene", "ksplat",
+                                       "native")
     chk.check("S0+S1", v, out)
 
     s2_path = os.path.join(tmp, "s2.ply")
     gio.save_ply(viewer_splats(gt, N_S2, SEED + 2, v.device), s2_path)
     snaps, partial = [0], {"frames": 0, "check_s": 0.0}
+    native.reset_counts()
     t0 = time.perf_counter()
 
     def on_update(scene, fraction):
@@ -1923,23 +1972,17 @@ def load_scenes(gt, tally, v, s0, tmp, chk):
     out = tally("viewer_3d", v.render, ONE_3D, "viewer S2 final frame")
     res["s2_final_frame_ms"] = ((time.perf_counter() - t0)
                                 - partial["check_s"]) * 1e3
+    res["s2_decodes"] = expect_decodes("S2's progressive load", "ply",
+                                       "native")
     chk.check("S2 final", v, out)
     if s2.num_splats != N_S2 or partial["frames"] == 0:
         raise AssertionError(f"S2 has {s2.num_splats} splats and "
                              f"{partial['frames']} partial frames")
-    # the same stream through a ProgressiveLoader alone: what of S2's load
-    # is the host's fetch and decode of the growing prefix
-    from gaussiansplats3d_tpu_torch.io.fetch import fetch_with_progress
-    from gaussiansplats3d_tpu_torch.io.progressive import ProgressiveLoader
-    loader = ProgressiveLoader.for_path(s2_path, device=v.device)
-
-    def feed(_pct, _label, chunk, _total):
-        loader.feed(chunk)
-        loader.snapshot()
-
-    _, decode_ms = wall_ms(lambda: (fetch_with_progress(s2_path, feed),
-                                    loader.finalize()))
-    res["s2_stream_decode_ms"] = decode_ms
+    # the same stream through a ProgressiveLoader alone, on each decode
+    # path: what of S2's load is the host's fetch, copies and decodes
+    res["s2_stream"] = {p: stream_split(s2_path, v.device, p)
+                        for p in ("native", "numpy")}
+    res["s2_stream_decode_ms"] = res["s2_stream"]["native"]["total_ms"]
     res.update({"s2_snapshots": snaps[0],
                 "s2_partial_frames": partial["frames"],
                 "s2_first_partial_frame_ms": partial["first_ms"],
@@ -1954,9 +1997,102 @@ def load_scenes(gt, tally, v, s0, tmp, chk):
         f"{res['s2_first_partial_frame_ms']:.1f} ms, final frame at "
         f"{res['s2_final_frame_ms']:.1f} ms ({partial['frames']} partial "
         f"frames; {partial['check_s']:.2f} s of their checks left out); "
-        f"the same stream's fetch and snapshot decodes alone "
-        f"{decode_ms:.1f} ms")
+        f"every decode native (S1 {res['s1_decodes']['ksplat']}, S2 "
+        f"{res['s2_decodes']['ply']})")
+    for p, r in res["s2_stream"].items():
+        log(f"S2's stream through a ProgressiveLoader alone, {p} decodes: "
+            f"{r['total_ms']:.1f} ms = buffer copies for the header "
+            f"{r['copy_ms']:.1f} + header parses {r['header_ms']:.1f} "
+            f"({r['header_calls']} calls) + decodes with the upload "
+            f"{r['decode_ms']:.1f} ({r['decode_calls']} calls) + the rest "
+            f"(reads, feeds, the snapshots' own copies) {r['rest_ms']:.1f}")
+    NATIVE["viewer"] = {k: res[k] for k in (
+        "s1_load_to_first_frame_ms", "s2_first_partial_frame_ms",
+        "s2_final_frame_ms", "s2_stream", "s1_decodes", "s2_decodes")}
     return res, s1_path, s2_path
+
+
+def expect_decodes(what, fmt, path):
+    """The decode counters since their last reset; raises unless `fmt` was
+    decoded, and every decode took `path` ('native' or 'numpy')."""
+    from gaussiansplats3d_tpu_torch.io import native
+    counts = native.decode_counts()
+    other = "numpy" if path == "native" else "native"
+    if counts[fmt][path] == 0 or any(c[other] for c in counts.values()):
+        raise AssertionError(f"{what}: decodes {counts}, expected every one "
+                             f"{path} ({native.status()})")
+    return counts
+
+
+@contextlib.contextmanager
+def time_calls(**targets):
+    """Within the block every call of each target, name=(owner, attribute),
+    adds its host ms and one call to spent[name] = [ms, calls]."""
+    spent = {k: [0.0, 0] for k in targets}
+    saved = []
+    for key, (owner, attr) in targets.items():
+        orig = getattr(owner, attr)
+
+        def wrap(*a, _orig=orig, _key=key, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _orig(*a, **kw)
+            finally:
+                spent[_key][0] += (time.perf_counter() - t0) * 1e3
+                spent[_key][1] += 1
+        saved.append((owner, attr, orig))
+        setattr(owner, attr, wrap)
+    try:
+        yield spent
+    finally:
+        for owner, attr, orig in saved:
+            setattr(owner, attr, orig)
+
+
+@contextlib.contextmanager
+def decode_path(path):
+    """GS_NATIVE for the block: the native decoders or the numpy ones."""
+    old = os.environ.get("GS_NATIVE")
+    os.environ["GS_NATIVE"] = "1" if path == "native" else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["GS_NATIVE"]
+        else:
+            os.environ["GS_NATIVE"] = old
+
+
+def stream_split(path, device, decoder):
+    """A .ply streamed through a ProgressiveLoader alone (fetch's 256 KiB
+    chunks, a snapshot tried after each) with `decoder`'s decodes, split
+    by host clock into the buffer copies made to read the header
+    (ProgressiveLoader._ply_stream_info less the parse), the header
+    parses (ply.streamable_ply_info), the decodes with their upload
+    (ply.parse_ply_inria_v1, the final one too) and the rest."""
+    from gaussiansplats3d_tpu_torch.io import fetch, ply
+    from gaussiansplats3d_tpu_torch.io import native
+    from gaussiansplats3d_tpu_torch.io.progressive import ProgressiveLoader
+    loader = ProgressiveLoader.for_path(path, device=device)
+    snaps = [0]
+
+    def feed(_pct, _label, chunk, _total):
+        loader.feed(chunk)
+        snaps[0] += loader.snapshot() is not None
+
+    native.reset_counts()
+    with decode_path(decoder), time_calls(
+            info=(ProgressiveLoader, "_ply_stream_info"),
+            header=(ply, "streamable_ply_info"),
+            decode=(ply, "parse_ply_inria_v1")) as spent:
+        _, total = wall_ms(lambda: (fetch.fetch_with_progress(path, feed),
+                                    loader.finalize()))
+    expect_decodes(f"S2's stream, {decoder}", "ply", decoder)
+    return {"total_ms": total, "snapshots": snaps[0],
+            "copy_ms": spent["info"][0] - spent["header"][0],
+            "header_ms": spent["header"][0], "header_calls": spent["header"][1],
+            "decode_ms": spent["decode"][0], "decode_calls": spent["decode"][1],
+            "rest_ms": total - spent["info"][0] - spent["decode"][0]}
 
 
 def run_fade(tally, v, chk):
@@ -2750,6 +2886,97 @@ def multi_gpu_slice(gt, cr, cs, kb, splats, cam, cfg, device):
     return res, tally.by_path
 
 
+# --- phase 12: the native scene decoders at full size -----------------------
+def decode_timed(gio, data, fmt, decoder):
+    """(SplatData on the CPU, host ms of each of DECODE_REPS decodes of the
+    whole buffer by `decoder`, every decode checked to take that path)."""
+    from gaussiansplats3d_tpu_torch.io import native
+    times = []
+    with decode_path(decoder):
+        for _ in range(DECODE_REPS):
+            native.reset_counts()
+            t0 = time.perf_counter()
+            out = gio.parse(data, fmt, device="cpu")
+            times.append((time.perf_counter() - t0) * 1e3)
+            expect_decodes(f"{fmt.value} decode", fmt.value, decoder)
+    return out, times
+
+
+def native_vs_numpy(name, data, fmt, device):
+    """One file decoded both ways: each way's times, and per field the
+    native decode's error mass against the numpy one (max, p99.9 of |d|,
+    share over NATIVE_ATOL), by comparison on the card.  Raises past
+    NATIVE_ATOL, or on any difference in colors or opacities (a flipped
+    1/255 step of the quantization)."""
+    from gaussiansplats3d_tpu_torch import io as gio
+    nat, nat_ms = decode_timed(gio, data, fmt, "native")
+    ref, ref_ms = decode_timed(gio, data, fmt, "numpy")
+    rec = {"file": name, "format": fmt.name, "splats": nat.num_splats,
+           "bytes": len(data), "native_ms": nat_ms, "numpy_ms": ref_ms,
+           "speedup": min(ref_ms) / min(nat_ms), "fields": {}}
+    if nat.num_splats != ref.num_splats:
+        raise AssertionError(f"{name}: {nat.num_splats} splats native, "
+                             f"{ref.num_splats} numpy")
+    for f in FIELDS:
+        a, b = getattr(nat, f).to(device), getattr(ref, f).to(device)
+        if a.shape != b.shape:
+            raise AssertionError(f"{name} {f}: shapes {tuple(a.shape)} and "
+                                 f"{tuple(b.shape)}")
+        if a.numel() == 0:
+            continue
+        mx, p999, over = error_mass(a, b, bar=NATIVE_ATOL)
+        rec["fields"][f] = {"max_abs": mx, "p999_abs": p999,
+                            f"share_over_{NATIVE_ATOL:g}": over}
+        if mx > NATIVE_ATOL or (f == "colors" and mx > 0):
+            raise AssertionError(f"{name} {f}: native against numpy, max "
+                                 f"|d| {mx:.3e}, p99.9 {p999:.3e}, share "
+                                 f"over {NATIVE_ATOL:g} {over:.3e}")
+    log(f"{name} ({rec['splats']} splats, {len(data)} B): native "
+        + "/".join(f"{t:.1f}" for t in nat_ms) + " ms, numpy "
+        + "/".join(f"{t:.1f}" for t in ref_ms)
+        + f" ms ({rec['speedup']:.1f}x); native - numpy: " + ", ".join(
+            f"{f} max {r['max_abs']:.2e} p99.9 {r['p999_abs']:.2e} over "
+            f"{r[f'share_over_{NATIVE_ATOL:g}']:.2e}"
+            for f, r in rec["fields"].items()))
+    return rec
+
+
+def native_decoders(gt, device):
+    """Phase 12 (see the module docstring): S1's 1M .ksplat at levels 0, 1
+    and 2, S2's 500k .ply, accept2's 1M .splat and accept3's 5M SH2
+    .ksplat, each written from its seeded scene and decoded both ways."""
+    from gaussiansplats3d_tpu_torch import io as gio
+    from gaussiansplats3d_tpu_torch.io.formats import scene_format_from_path
+    from gaussiansplats3d_tpu_torch.tools import bench_configs
+    t_phase = time.perf_counter()
+    s1 = viewer_splats(gt, N_S1, SEED + 1, device)
+    files = [(f"S1 .ksplat level {lv}", "s1.ksplat",
+              lambda p, lv=lv: gio.save_ksplat(s1, p, compression_level=lv))
+             for lv in (0, 1, 2)]
+    files += [
+        ("S2 .ply", "s2.ply", lambda p: gio.save_ply(
+            viewer_splats(gt, N_S2, SEED + 2, device), p)),
+        ("accept2 .splat", "accept2.splat", lambda p: gt.save(
+            bench_configs._scene(N_ACCEPT2, 1, device), p)),
+        ("accept3 .ksplat", "accept3.ksplat", lambda p: gt.save(
+            bench_configs._scene(N_ACCEPT3, 2, device), p))]
+    recs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fname, write in files:
+            path = os.path.join(tmp, fname)
+            write(path)
+            with open(path, "rb") as f:
+                data = f.read()
+            os.remove(path)
+            recs.append(native_vs_numpy(name, data,
+                                        scene_format_from_path(path), device))
+    seconds = time.perf_counter() - t_phase
+    log(f"native decoders at full size: {len(recs)} files, each within "
+        f"{NATIVE_ATOL:g} of numpy with colors and opacities equal; "
+        f"{seconds:.1f} s")
+    return recs, seconds
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2863,6 +3090,9 @@ def main():
             (b1, sharded["scaling_bench"]["kernels"], "fwd_max_abs_err"),
             (b2, sharded["scaling_bench"]["kernels"], "bwd_max_abs_err")):
         entry["max_abs_err"] = max(entry["max_abs_err"], rec[err])
+    NATIVE["decoders"], NATIVE["phase12_seconds"] = native_decoders(
+        gt, device)
+    log(json.dumps({"native": NATIVE}))
     log(json.dumps({"kernels": [b1, b2, b3, b4, b5]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,12 @@ stale library is never loaded.  ``-Xptxas -v``
 reports each kernel's registers, shared memory and spills; the report is
 kept beside the library (:func:`ptxas_report`).
 
+The host library of the native scene decoders (``csrc/ingest.cpp``) is
+built the same way with ``g++`` (:func:`build_host`); its name also
+carries the compiler's version line and the CPU ``-march=native`` resolves
+to, so a ``_build/`` copied to another host never loads a library built
+for other instructions.
+
 Nothing here runs at import time: this module imports on machines without
 ``nvcc`` or a GPU.
 """
@@ -16,6 +22,7 @@ Nothing here runs at import time: this module imports on machines without
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -32,6 +39,10 @@ KERNELS = ("composite_fwd", "composite_bwd", "surfel_fwd", "surfel_bwd",
 # thresholds (min_alpha, the 0.999 clamp, the 1e-4 exit).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the JAX package's flags for the same source (its io/native.py)
+HOST_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+              "-pthread")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -102,3 +113,56 @@ def ptxas_report(name: str) -> str:
     memory, spills), or '' if the library came from an earlier build."""
     _, _, report = _paths(name)
     return report.read_text() if report.exists() else ""
+
+
+def gxx_path() -> str:
+    """``g++`` on the PATH."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found on PATH")
+    return gxx
+
+
+@functools.lru_cache(maxsize=None)
+def gxx_identity() -> str:
+    """``g++ --version``'s first line and the ``-march`` that
+    ``-march=native`` resolves to on this CPU: what, besides the source
+    and the flags, decides the host library's machine code."""
+    gxx = gxx_path()
+    version = subprocess.run([gxx, "--version"], capture_output=True,
+                             text=True, check=True).stdout.splitlines()[0]
+    target = subprocess.run([gxx, "-march=native", "-Q", "--help=target"],
+                            capture_output=True, text=True).stdout
+    march = re.search(r"^\s*-march=\s+(\S+)", target, flags=re.MULTILINE)
+    return f"{version} march={march.group(1) if march else '?'}"
+
+
+def host_lib_path(name: str, build_dir=None, csrc=None) -> Path:
+    """Where :func:`build_host` puts ``<csrc>/<name>.cpp``'s library: its
+    name hashes the source, :data:`HOST_FLAGS` and :func:`gxx_identity`."""
+    src = Path(csrc or CSRC) / f"{name}.cpp"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(HOST_FLAGS).encode()
+        + gxx_identity().encode()).hexdigest()[:16]
+    return Path(build_dir or BUILD_DIR) / f"lib{name}-{digest}.so"
+
+
+def build_host(name: str, build_dir=None, csrc=None) -> Path:
+    """Compile ``<csrc>/<name>.cpp`` (default ``csrc/``) with ``g++`` into
+    ``build_dir`` (default ``_build/``) unless an up-to-date library
+    exists; returns its path.  Raises RuntimeError with the compiler's
+    output if the build fails.  Safe to call from several processes at
+    once: each compiles to a private file and renames it into place."""
+    src = Path(csrc or CSRC) / f"{name}.cpp"
+    lib = host_lib_path(name, build_dir, csrc)
+    if lib.exists():
+        return lib
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([gxx_path(), *HOST_FLAGS, str(src), "-o", str(tmp)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed on {src}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib

@@ -1,15 +1,40 @@
-"""3D covariance from scale/rotation as flat per-splat entries (counterpart
-of the JAX package's ``core/covariance.py``).
+"""3D covariance from scale/rotation (counterpart of the JAX package's
+``core/covariance.py``).
 
 Matches the reference's `SplatBuffer.computeCovariance`
-(src/loaders/SplatBuffer.js:440-486): C = R @ S, Sigma = C @ C^T.
+(src/loaders/SplatBuffer.js:440-486): C = R @ S, Sigma = C @ C^T, and
+with a scene transform T3 (the upper-left 3x3 of the 4x4)
+Sigma' = T3 @ Sigma @ T3^T.  The renderer's hot path uses the flat
+per-splat entries (:func:`covariance6_elements`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .math3d import normalize
+from .math3d import normalize, quat_to_rotmat
+
+
+def covariance_from_scale_quat(scales: torch.Tensor, quats: torch.Tensor,
+                               transform3: torch.Tensor | None = None
+                               ) -> torch.Tensor:
+    """Full 3x3 covariance matrices ``[N, 3, 3]`` from ``scales [N, 3]``
+    and ``quats [N, 4]`` (x, y, z, w), with an optional ``[3, 3]`` scene
+    transform applied congruently."""
+    m = quat_to_rotmat(quats) * scales[:, None, :]          # R @ diag(s)
+    cov = m @ m.transpose(-1, -2)
+    if transform3 is not None:
+        cov = transform3[None] @ cov @ transform3.T[None]
+    return cov
+
+
+def covariance6(scales: torch.Tensor, quats: torch.Tensor,
+                transform3: torch.Tensor | None = None) -> torch.Tensor:
+    """Compact symmetric covariance ``[N, 6]``: (xx, xy, xz, yy, yz, zz),
+    the order the reference packs (SplatBuffer.js:469-483)."""
+    cov = covariance_from_scale_quat(scales, quats, transform3)
+    return torch.stack([cov[:, 0, 0], cov[:, 0, 1], cov[:, 0, 2],
+                        cov[:, 1, 1], cov[:, 1, 2], cov[:, 2, 2]], dim=-1)
 
 
 def covariance6_elements(scales: torch.Tensor, quats: torch.Tensor):

@@ -1,5 +1,7 @@
 """.ksplat format: reader + writer, compression levels 0/1/2 (counterpart of
-the JAX package's ``io/ksplat.py``, its numpy decode).
+the JAX package's ``io/ksplat.py``).  Each section's records decode
+through the native decoder (``io/native.py``) where it loads, else in
+numpy.
 
 The sectioned binary layout follows the reference exactly so files are
 interchangeable (all refs into the reference's src/loaders/SplatBuffer.js):
@@ -35,6 +37,7 @@ import numpy as np
 
 from ..constants import SPHERICAL_HARMONICS_8BIT_RANGE
 from ..core.types import SplatData
+from . import native
 from ._arrays import host_arrays, to_splatdata
 
 HEADER_BYTES = 4096
@@ -89,6 +92,70 @@ def _f16_to_f32(u16arr: np.ndarray) -> np.ndarray:
     return u16arr.astype("<u2").view(np.float16).astype(np.float32)
 
 
+def _section_buckets(data, section_base, n, bucket_size, bucket_count,
+                     full_buckets, partial_buckets):
+    """(bucket centers [B, 3], the bucket of each of the first ``n``
+    records) of a level >= 1 section: full buckets of ``bucket_size``,
+    then the partial buckets' lengths, read from the section's head."""
+    if partial_buckets:
+        plens = np.frombuffer(data, "<u4", partial_buckets, section_base)
+    else:
+        plens = np.zeros((0,), np.uint32)
+    centers = np.frombuffer(
+        data, "<f4", bucket_count * 3,
+        section_base + partial_buckets * 4).reshape(bucket_count, 3)
+    lens = np.concatenate([np.full(full_buckets, bucket_size, np.int64),
+                           plens.astype(np.int64)])
+    return centers, np.repeat(np.arange(len(lens)), lens)[:n]
+
+
+def _numpy_section(rows, n, level, sh_degree, header, centers, bucket_of,
+                   sf, scale_range):
+    """(means, scales, quats, colors, sh) of ``n`` records in numpy."""
+    if level == 0:
+        f = rows[:, :44].copy().view("<f4")
+        means = f[:, 0:3].copy()
+        scales = f[:, 3:6].copy()
+        q_wxyz = f[:, 6:10]
+        colors_u8 = rows[:, 40:44]
+        sh_flat = rows[:, 44:].copy().view("<f4") \
+            if sh_degree else np.zeros((n, 0), np.float32)
+    else:
+        c_u16 = rows[:, 0:6].copy().view("<u2").astype(np.float32)
+        sr_u16 = rows[:, 6:20].copy().view("<u2")
+        scales = _f16_to_f32(sr_u16[:, 0:3])
+        q_wxyz = _f16_to_f32(sr_u16[:, 3:7])
+        colors_u8 = rows[:, 20:24]
+        # bucketed center decode
+        means = ((c_u16 - scale_range) * sf
+                 + centers[bucket_of]).astype(np.float32)
+        if sh_degree:
+            if level == 1:
+                sh_flat = _f16_to_f32(rows[:, 24:].copy().view("<u2"))
+            else:
+                rng = header.max_sh - header.min_sh
+                sh_flat = (rows[:, 24:24 + SH_COMPONENTS[sh_degree]]
+                           .astype(np.float32) / 255.0 * rng
+                           + header.min_sh)
+        else:
+            sh_flat = np.zeros((n, 0), np.float32)
+
+    # channel-major per band -> [N, K, 3] coefficient-major
+    k = SH_DEG_TO_K[sh_degree]
+    sh = np.zeros((n, k, 3), np.float32)
+    if k >= 3:
+        band1 = sh_flat[:, 0:9].reshape(n, 3, 3)   # [n, rgb, coeff]
+        sh[:, 0:3, :] = band1.transpose(0, 2, 1)
+    if k >= 8:
+        band2 = sh_flat[:, 9:24].reshape(n, 3, 5)
+        sh[:, 3:8, :] = band2.transpose(0, 2, 1)
+
+    qn = np.maximum(np.linalg.norm(q_wxyz, axis=1, keepdims=True), 1e-12)
+    q_wxyz = q_wxyz / qn
+    colors = colors_u8.astype(np.float32) / 255.0
+    return means, scales, q_wxyz[:, [1, 2, 3, 0]], colors, sh
+
+
 def parse_ksplat(data: bytes, max_bytes: int | None = None,
                  device="cuda") -> SplatData:
     """Decode a .ksplat buffer into SplatData (all sections concatenated).
@@ -141,62 +208,22 @@ def parse_ksplat(data: bytes, max_bytes: int | None = None,
         if n > 0:
             rows = np.frombuffer(data, np.uint8, n * bps, data_base
                                  ).reshape(n, bps)
-            if level == 0:
-                f = rows[:, :44].copy().view("<f4")
-                means = f[:, 0:3].copy()
-                scales = f[:, 3:6].copy()
-                q_wxyz = f[:, 6:10]
-                colors_u8 = rows[:, 40:44]
-                sh_flat = rows[:, 44:].copy().view("<f4") \
-                    if sh_degree else np.zeros((n, 0), np.float32)
-            else:
-                c_u16 = rows[:, 0:6].copy().view("<u2").astype(np.float32)
-                sr_u16 = rows[:, 6:20].copy().view("<u2")
-                scales = _f16_to_f32(sr_u16[:, 0:3])
-                q_wxyz = _f16_to_f32(sr_u16[:, 3:7])
-                colors_u8 = rows[:, 20:24]
-                # bucketed center decode
-                if partial_buckets:
-                    plens = np.frombuffer(data, "<u4", partial_buckets,
-                                          section_base)
-                else:
-                    plens = np.zeros((0,), np.uint32)
-                centers = np.frombuffer(
-                    data, "<f4", bucket_count * 3,
-                    section_base + meta_bytes).reshape(bucket_count, 3)
-                lens = np.concatenate([
-                    np.full(full_buckets, bucket_size, np.int64),
-                    plens.astype(np.int64)])
-                bucket_of = np.repeat(np.arange(len(lens)), lens)[:n]
+            if level >= 1:
+                centers, bucket_of = _section_buckets(
+                    data, section_base, n, bucket_size, bucket_count,
+                    full_buckets, partial_buckets)
                 sf = (block_size / 2.0) / scale_range
-                means = ((c_u16 - scale_range) * sf
-                         + centers[bucket_of]).astype(np.float32)
-                if sh_degree:
-                    if level == 1:
-                        sh_flat = _f16_to_f32(rows[:, 24:].copy().view("<u2"))
-                    else:
-                        rng = header.max_sh - header.min_sh
-                        sh_flat = (rows[:, 24:24 + SH_COMPONENTS[sh_degree]]
-                                   .astype(np.float32) / 255.0 * rng
-                                   + header.min_sh)
-                else:
-                    sh_flat = np.zeros((n, 0), np.float32)
-
-            # channel-major per band -> [N, K, 3] coefficient-major
-            k = SH_DEG_TO_K[sh_degree]
-            sh = np.zeros((n, k, 3), np.float32)
-            if k >= 3:
-                band1 = sh_flat[:, 0:9].reshape(n, 3, 3)   # [n, rgb, coeff]
-                sh[:, 0:3, :] = band1.transpose(0, 2, 1)
-            if k >= 8:
-                band2 = sh_flat[:, 9:24].reshape(n, 3, 5)
-                sh[:, 3:8, :] = band2.transpose(0, 2, 1)
-
-            qn = np.maximum(
-                np.linalg.norm(q_wxyz, axis=1, keepdims=True), 1e-12)
-            q_wxyz = q_wxyz / qn
-            colors = colors_u8.astype(np.float32) / 255.0
-            parts.append((means, scales, q_wxyz[:, [1, 2, 3, 0]], colors, sh))
+            else:
+                centers = np.zeros((0, 3), np.float32)
+                bucket_of, sf = np.zeros((0,), np.int64), 0.0
+            decoded = native.parse_ksplat_section_native(
+                rows, n, level, sh_degree, bucket_of, centers, sf,
+                scale_range, header.min_sh, header.max_sh)
+            if decoded is None:
+                native.record_decode("ksplat", "numpy")
+                decoded = _numpy_section(rows, n, level, sh_degree, header,
+                                         centers, bucket_of, sf, scale_range)
+            parts.append(decoded)
 
         storage = int(u32[7]) or (n_full * bps + buckets_bytes)
         section_base += storage

@@ -1,5 +1,8 @@
 """.ply ingest: INRIA V1 gaussian-splat PLY (and plain colored point clouds);
-counterpart of the JAX package's ``io/ply.py`` (its numpy decode).
+counterpart of the JAX package's ``io/ply.py``.  A binary little-endian
+file whose vertex element comes first with all-f32 properties decodes
+through the native decoder (``io/native.py``) where it loads; every other
+file, or every file without the library, through the numpy columns.
 
 Semantics follow the reference parser
 (src/loaders/ply/INRIAV1PlyParser.js:143-207):
@@ -24,6 +27,7 @@ import numpy as np
 
 from ..constants import SH_C0
 from ..core.types import SplatData
+from . import native
 from ._arrays import host_arrays, to_splatdata
 
 _HEADER_END = b"end_header"
@@ -125,6 +129,73 @@ def _sigmoid(x):
     return 1.0 / (1.0 + np.exp(-x))
 
 
+# the native decoder's field order (csrc/ingest.cpp's field_offsets)
+_NATIVE_FIELDS = ("x", "y", "z", "scale_0", "scale_1", "scale_2",
+                  "rot_0", "rot_1", "rot_2", "rot_3",
+                  "f_dc_0", "f_dc_1", "f_dc_2", "opacity")
+# groups the numpy decode reads whole once their first field is there
+_NATIVE_GROUPS = (("x", "y", "z"), ("scale_0", "scale_1", "scale_2"),
+                  ("rot_0", "rot_1", "rot_2", "rot_3"))
+
+
+def _quantized_colors(col, names, count):
+    """[N, 4] RGBA from the vertex columns (``col(name)``): f_dc through
+    SH_C0 (or u8-style red/green/blue), opacity through the sigmoid, each
+    floored to a multiple of 1/255."""
+    if "f_dc_0" in names:
+        rgb = 0.5 + SH_C0 * np.stack([col("f_dc_0"), col("f_dc_1"),
+                                      col("f_dc_2")], axis=1)
+    elif "red" in names:
+        rgb = np.stack([col("red"), col("green"), col("blue")], axis=1) / 255.0
+    else:
+        rgb = np.zeros((count, 3), np.float32)
+    # The reference quantizes to u8 with floor (INRIAV1PlyParser.js:177-181);
+    # we keep float colors but clamp identically.
+    rgb = np.clip(np.floor(np.clip(rgb, 0, None) * 255.0), 0, 255) / 255.0
+
+    if "opacity" in names:
+        op = np.clip(np.floor(_sigmoid(col("opacity")) * 255.0), 0, 255) / 255.0
+    else:
+        op = np.ones((count,), np.float32)
+    return np.concatenate([rgb, op[:, None]], axis=1)
+
+
+def _try_native_inria_v1(data: bytes, header: PlyHeader, sh_degree):
+    """(means, scales, quats, colors, sh) from the native decoder, or None
+    where it does not apply: not binary little-endian, the vertex element
+    not first, a property not f32, a field group only partly there (the
+    numpy decode reads or refuses these its own way), or no library.  A
+    body shorter than the header says raises as the numpy decode does."""
+    if header.format != "binary_little_endian":
+        return None
+    if header.elements[0][0] != "vertex":
+        return None
+    count, props = header.vertex
+    offsets = {}
+    for i, (name, t) in enumerate(props):
+        if t not in ("float", "float32"):
+            return None
+        offsets[name] = 4 * i
+    stride = 4 * len(props)
+    for group in _NATIVE_GROUPS:
+        there = [f in offsets for f in group]
+        if not all(there) and (any(there) or group[0] == "x"):
+            return None
+    n_rest = sum(1 for p in props if p[0].startswith("f_rest_"))
+    cpc = n_rest // 3
+    file_deg = 3 if cpc >= 15 else 2 if cpc >= 8 else 1 if cpc >= 3 else 0
+    out_deg = file_deg if sh_degree is None else min(sh_degree, file_deg)
+    k = {0: 0, 1: 3, 2: 8, 3: 15}[out_deg]
+    rest = [f"f_rest_{j}" for j in range(3 * cpc if k else 0)]
+    if not all(f in offsets for f in rest):
+        return None
+    # a view of the vertex block, not a copy
+    block = np.frombuffer(data, np.uint8, count * stride, header.header_size)
+    return native.parse_ply_inria_v1_native(
+        block, count, stride, [offsets.get(f, -1) for f in _NATIVE_FIELDS],
+        [offsets[f] for f in rest], k, cpc if k else 1)
+
+
 def streamable_ply_info(data: bytes):
     """(header_size, vertex_count, row_stride) if ``data``'s header shows a
     prefix-decodable PLY, else None.
@@ -175,10 +246,22 @@ def parse_ply_inria_v1(data: bytes, sh_degree: int | None = None,
         header = _clamp_vertex_count(header, max_splats)
     count, props = header.vertex
     names = {p[0] for p in props}
+    decoded = _try_native_inria_v1(data, header, sh_degree)
+    if decoded is None:
+        native.record_decode("ply", "numpy")
     v = _vertex_recarray(data, header)
 
     def col(name):
         return np.asarray(v[name], np.float32)
+
+    # Both paths quantize colors here: floor(x * 255) flips where the
+    # native decoder's exp or contracted multiply-add rounds the last bit
+    # otherwise (a few entries a million), and a scene must not change with
+    # the path.
+    colors = _quantized_colors(col, names, count)
+    if decoded is not None:
+        means, scales, quats, _, sh = decoded
+        return to_splatdata(means, scales, quats, colors, sh, device)
 
     means = np.stack([col("x"), col("y"), col("z")], axis=1)
 
@@ -187,22 +270,6 @@ def parse_ply_inria_v1(data: bytes, sh_degree: int | None = None,
                                   col("scale_2")], axis=1))
     else:
         scales = np.full((count, 3), 0.01, np.float32)
-
-    if "f_dc_0" in names:
-        rgb = 0.5 + SH_C0 * np.stack([col("f_dc_0"), col("f_dc_1"),
-                                      col("f_dc_2")], axis=1)
-    elif "red" in names:
-        rgb = np.stack([col("red"), col("green"), col("blue")], axis=1) / 255.0
-    else:
-        rgb = np.zeros((count, 3), np.float32)
-    # The reference quantizes to u8 with floor (INRIAV1PlyParser.js:177-181);
-    # we keep float colors but clamp identically.
-    rgb = np.clip(np.floor(np.clip(rgb, 0, None) * 255.0), 0, 255) / 255.0
-
-    if "opacity" in names:
-        op = np.clip(np.floor(_sigmoid(col("opacity")) * 255.0), 0, 255) / 255.0
-    else:
-        op = np.ones((count,), np.float32)
 
     if "rot_0" in names:
         q_wxyz = np.stack([col("rot_0"), col("rot_1"), col("rot_2"),
@@ -229,8 +296,6 @@ def parse_ply_inria_v1(data: bytes, sh_degree: int | None = None,
     for ch in range(3 if k else 0):
         for i in range(k):
             sh[:, i, ch] = col(f"f_rest_{ch * coeffs_per_channel + i}")
-
-    colors = np.concatenate([rgb, op[:, None]], axis=1)
     return to_splatdata(means, scales, quats, colors, sh, device)
 
 

@@ -10,9 +10,10 @@ PlyLoader.js:89-291 section streaming, splat/SplatLoader.js:26-173).
 Formats whose byte layout is a VALID PREFIX (`.ksplat`, `.splat`, and
 binary fixed-stride `.ply` once its header has arrived) decode
 incrementally — :class:`ProgressiveLoader` accepts chunks and produces
-growing ``SplatData`` snapshots; each snapshot decodes the prefix in numpy
-on the host and uploads it to ``device`` once, as fresh tensors (there is
-no partial-texture upload to emulate).  Formats that need the whole buffer (ascii /
+growing ``SplatData`` snapshots; each snapshot decodes the prefix on the
+host (the native decoders of ``native`` where they load, else numpy) and
+uploads it to ``device`` once, as fresh tensors (there is no
+partial-texture upload to emulate).  Formats that need the whole buffer (ascii /
 chunked / codebook `.ply` dialects, `.spz` gzip) buffer up and decode once
 at the end — the reference's ``DirectLoadError`` downgrade path
 (Viewer.js:1302-1308).

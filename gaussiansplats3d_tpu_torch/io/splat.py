@@ -1,7 +1,8 @@
 """antimatter15 ``.splat`` format: 32 bytes per splat, no header.
 
-Counterpart of the JAX package's ``io/splat.py`` (its numpy decode).  Row
-layout (reference: src/loaders/splat/SplatParser.js:13-56):
+Counterpart of the JAX package's ``io/splat.py``: the native decoder
+(``io/native.py``) where it loads, else the numpy rows.  Row layout
+(reference: src/loaders/splat/SplatParser.js:13-56):
 
     3 x f32  position
     3 x f32  scale (linear, already exp'd)
@@ -17,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.types import SplatData
+from . import native
 from ._arrays import host_arrays, to_splatdata
 
 
@@ -26,6 +28,11 @@ def parse_splat(data: bytes, device="cuda") -> SplatData:
         raise ValueError(f".splat byte length {len(data)} is not a multiple "
                          "of the 32-byte row size")
     n = len(data) // 32
+    decoded = native.parse_splat_native(data)
+    if decoded is not None:
+        return to_splatdata(*decoded, np.zeros((n, 0, 3), np.float32),
+                            device)
+    native.record_decode("splat", "numpy")
     rows = np.frombuffer(data, dtype=np.uint8).reshape(n, 32)
     f32 = rows[:, :24].copy().view("<f4")
     means = f32[:, 0:3]

@@ -32,24 +32,35 @@ def splat_alphas(px, py, mean2d, conic, opacity, radius, min_alpha):
     return torch.clamp(alpha, max=ALPHA_CLAMP)
 
 
+def composite_chunk(px, py, mean2d, conic, color, opacity, radius,
+                    min_alpha, color_acc, trans):
+    """Composite one chunk of C splats (front-to-back order) over P pixels:
+    the updated (color_acc [P, K], trans [P])."""
+    alpha = splat_alphas(px, py, mean2d, conic, opacity, radius,
+                         min_alpha)                              # [C, P]
+    log_omega = torch.log1p(-alpha)
+    # exclusive prefix sum along the splats: log prod_{j<i} (1 - alpha_j)
+    excl = torch.cumsum(log_omega, dim=0) - log_omega
+    w = alpha * torch.exp(excl) * trans[None, :]
+    color_acc = color_acc + w.T @ color
+    trans = trans * torch.exp(torch.sum(log_omega, dim=0))
+    return color_acc, trans
+
+
 def composite_sorted(px, py, mean2d, conic, color, opacity, radius,
                      min_alpha, chunk_size: int = 128):
     """Composite depth-sorted splats over all pixels, ``chunk_size`` splats
-    at a time.  ``color`` may carry any number of channels K.  Returns
-    (color [P, K], trans [P])."""
+    at a time (:func:`composite_chunk`).  ``color`` may carry any number
+    of channels K.  Returns (color [P, K], trans [P])."""
     p = px.shape[0]
     k = color.shape[-1]
     color_acc = torch.zeros((p, k), dtype=torch.float32, device=px.device)
     trans = torch.ones((p,), dtype=torch.float32, device=px.device)
     for s in range(0, mean2d.shape[0], chunk_size):
         e = s + chunk_size
-        alpha = splat_alphas(px, py, mean2d[s:e], conic[s:e], opacity[s:e],
-                             radius[s:e], min_alpha)            # [C, P]
-        log_omega = torch.log1p(-alpha)
-        excl = torch.cumsum(log_omega, dim=0) - log_omega
-        w = alpha * torch.exp(excl) * trans[None, :]
-        color_acc = color_acc + w.T @ color[s:e]
-        trans = trans * torch.exp(torch.sum(log_omega, dim=0))
+        color_acc, trans = composite_chunk(
+            px, py, mean2d[s:e], conic[s:e], color[s:e], opacity[s:e],
+            radius[s:e], min_alpha, color_acc, trans)
     return color_acc, trans
 
 

@@ -70,6 +70,78 @@ def test_covariance_and_quadratic_form_match_jax():
           m3_j.quat_to_rotmat(jnp.asarray(quats)), atol=1e-6)
 
 
+@pytest.mark.parametrize("with_transform", [False, True])
+def test_full_covariance_and_covariance6_match_jax(with_transform):
+    """covariance_from_scale_quat ([N, 3, 3]) and covariance6 ([N, 6]),
+    with and without a scene transform applied congruently, against the
+    JAX functions at 1e-6."""
+    _, scales, quats, _, _ = scene_arrays(500, seed=6, scale_mul=10.0)
+    quats = quats * 1.7          # unnormalised: both normalise internally
+    t3 = (np.random.default_rng(6).uniform(-1.0, 1.0, (3, 3))
+          .astype(np.float32) if with_transform else None)
+    args_t = [torch.from_numpy(scales), torch.from_numpy(quats),
+              None if t3 is None else torch.from_numpy(t3)]
+    args_j = [jnp.asarray(scales), jnp.asarray(quats),
+              None if t3 is None else jnp.asarray(t3)]
+    full_t = cov_t.covariance_from_scale_quat(*args_t)
+    assert full_t.shape == (500, 3, 3)
+    close(full_t, cov_j.covariance_from_scale_quat(*args_j), rtol=0,
+          atol=1e-6)
+    c6_t = cov_t.covariance6(*args_t)
+    assert c6_t.shape == (500, 6)
+    close(c6_t, cov_j.covariance6(*args_j), rtol=0, atol=1e-6)
+    if t3 is None:                 # the flat entries' order is (xx .. zz)
+        close_scaled(c6_t.T, jnp.stack(cov_j.covariance6_elements(
+            *args_j[:2])))
+
+
+def test_covariance_isotropy_congruence_and_axis_order():
+    """tests/test_core_math.py's cases on the port: an isotropic scale
+    gives s^2 I under any rotation, a transform diag(2, 1, 1) scales it
+    congruently, and covariance6 packs (xx, xy, xz, yy, yz, zz)."""
+    quats = m3_t.normalize(torch.from_numpy(
+        np.random.default_rng(3).normal(size=(8, 4)).astype(np.float32)))
+    scales = torch.full((8, 3), 0.5)
+    close(cov_t.covariance_from_scale_quat(scales, quats),
+          np.tile(0.25 * np.eye(3), (8, 1, 1)), rtol=0, atol=1e-5)
+    t3 = torch.tensor([[2.0, 0, 0], [0, 1.0, 0], [0, 0, 1.0]])
+    close(cov_t.covariance_from_scale_quat(scales, quats, t3),
+          np.tile(np.diag([1.0, 0.25, 0.25]), (8, 1, 1)), rtol=0, atol=1e-5)
+    c6 = cov_t.covariance6(torch.tensor([[1.0, 2.0, 3.0]]),
+                           torch.tensor([[0.0, 0.0, 0.0, 1.0]]))
+    close(c6[0], [1.0, 0.0, 0.0, 4.0, 0.0, 9.0], rtol=0, atol=1e-6)
+
+
+def test_composite_chunk_matches_jax():
+    """One chunk of 64 front-to-back splats over 256 pixels, four
+    channels, onto a running color and transmittance: the port's
+    composite_chunk against the JAX one at 1e-5."""
+    from gaussiansplats3d_tpu.render import compositing as comp_j
+    from gaussiansplats3d_tpu_torch.render import compositing as comp_t
+    rng = np.random.default_rng(8)
+    c, p = 64, 256
+    px = rng.uniform(0.0, 16.0, p).astype(np.float32)
+    py = rng.uniform(0.0, 16.0, p).astype(np.float32)
+    mean2d = rng.uniform(0.0, 16.0, (c, 2)).astype(np.float32)
+    a, cc = rng.uniform(0.05, 0.6, (2, c))
+    b = rng.uniform(-0.5, 0.5, c) * np.sqrt(a * cc)
+    conic = np.stack([a, b, cc], axis=1).astype(np.float32)
+    color = rng.uniform(0.0, 1.0, (c, 4)).astype(np.float32)
+    opacity = rng.uniform(0.1, 1.0, c).astype(np.float32)
+    radius = rng.uniform(1.0, 8.0, (c, 2)).astype(np.float32)
+    acc = rng.uniform(0.0, 0.5, (p, 4)).astype(np.float32)
+    trans = rng.uniform(0.2, 1.0, p).astype(np.float32)
+    args = (px, py, mean2d, conic, color, opacity, radius)
+    out_t = comp_t.composite_chunk(*map(torch.from_numpy, args), 1 / 255,
+                                   torch.from_numpy(acc),
+                                   torch.from_numpy(trans))
+    out_j = comp_j.composite_chunk(*map(jnp.asarray, args), 1 / 255,
+                                   jnp.asarray(acc), jnp.asarray(trans))
+    for t, j in zip(out_t, out_j):
+        close(t, j, rtol=0, atol=1e-5)
+    assert float(torch.max(torch.from_numpy(trans) - out_t[1])) > 0.1
+
+
 @pytest.mark.parametrize("eye,target,up", [
     ((2.5, 1.5, 2.5), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0)),
     ((-1.0, 4.0, 0.3), (0.2, -0.1, 0.5), (0.0, 0.0, 1.0)),

@@ -1,8 +1,8 @@
 """The port stands alone: importing it, its viewer, its progressive
-loader and URL fetch, its multi-device layer, and its render_scene,
-create_ksplat and scaling_bench tools loads neither JAX nor the JAX
-package (checked in a fresh interpreter, since
-this test process has imported both)."""
+loader, URL fetch and native decoders, its multi-device layer, and its
+render_scene, create_ksplat and scaling_bench tools loads neither JAX nor
+the JAX package (checked in a fresh interpreter, since this test process
+has imported both)."""
 
 import json
 import os
@@ -17,6 +17,7 @@ import gaussiansplats3d_tpu_torch
 import gaussiansplats3d_tpu_torch.viewer
 import gaussiansplats3d_tpu_torch.io.progressive
 import gaussiansplats3d_tpu_torch.io.fetch
+import gaussiansplats3d_tpu_torch.io.native
 import gaussiansplats3d_tpu_torch.tools.render_scene
 import gaussiansplats3d_tpu_torch.tools.create_ksplat
 import gaussiansplats3d_tpu_torch.parallel

@@ -1,7 +1,8 @@
 """Scene-file IO of the port (gaussiansplats3d_tpu_torch/io) against the JAX
-package's: the same bytes decode to the same float32 bits (the JAX side
-pinned to its numpy decoders with GS_NATIVE=0, which also keeps these tests
-from building the native library), and the same arrays encode to the same
+package's: the same bytes decode to the same float32 bits (both packages
+pinned to their numpy decoders with GS_NATIVE=0, which also keeps these
+tests from building the native libraries; tests/test_torch_native.py
+holds the native decoders), and the same arrays encode to the same
 bytes (.spz: the same gzip payload and header but its timestamp), for
 .ply (INRIA v1, v2 and PlayCanvas), .splat, .ksplat at compression levels
 0/1/2 and SH degrees 0/1/2, and .spz; bytes of the reference's writer
@@ -40,7 +41,8 @@ FIELDS = ("means", "scales", "quats", "colors", "sh")
 
 @pytest.fixture(autouse=True)
 def numpy_decoders(monkeypatch):
-    """The JAX package's numpy decoders, not its native library."""
+    """Both packages on their numpy decoders, not their native libraries
+    (both read GS_NATIVE)."""
     monkeypatch.setenv("GS_NATIVE", "0")
 
 

@@ -5,8 +5,8 @@ the same byte prefixes; the viewer's progressive load; optimize; SH
 rotation and baking; SplatData.concatenate; the transform helpers of
 math3d.
 
-Bars.  Decoders, snapshots, optimize and concatenate: bit for bit (the
-JAX side on its numpy decoders, GS_NATIVE=0).  SH rotation, baking and
+Bars.  Decoders, snapshots, optimize and concatenate: bit for bit (both
+packages on their numpy decoders, GS_NATIVE=0).  SH rotation, baking and
 the math3d helpers: within 1e-5 (float32 arithmetic in another order).
 A baked scene's render against the dynamic transform's: error mass,
 p99.9 of |d| <= 1e-3 and <= 0.1% of elements over 1e-2."""
@@ -40,7 +40,8 @@ FIELDS = ("means", "scales", "quats", "colors", "sh")
 
 @pytest.fixture(autouse=True)
 def numpy_decoders(monkeypatch):
-    """The JAX package's numpy decoders, not its native library."""
+    """Both packages on their numpy decoders, not their native libraries
+    (both read GS_NATIVE)."""
     monkeypatch.setenv("GS_NATIVE", "0")
 
 

@@ -375,7 +375,7 @@ def test_create_ksplat_matches_the_jax_tool_bytes(tmp_path, monkeypatch,
     degree)."""
     from gaussiansplats3d_tpu.tools import create_ksplat as ck_j
     from gaussiansplats3d_tpu_torch.tools import create_ksplat as ck_t
-    monkeypatch.setenv("GS_NATIVE", "0")      # the JAX numpy decoders
+    monkeypatch.setenv("GS_NATIVE", "0")      # both packages' numpy decoders
     src = _tool_scene(tmp_path, ext, sh_degree=2 if ext == "ply" else 0)
     outs = [str(tmp_path / f"out_{k}.ksplat") for k in ("j", "t")]
     with contextlib.redirect_stdout(io.StringIO()):
@@ -406,7 +406,7 @@ def test_render_scene_cpu_matches_the_jax_tool(tmp_path, monkeypatch):
     the values over 1e-2."""
     from gaussiansplats3d_tpu.tools import render_scene as rs_j
     from gaussiansplats3d_tpu_torch.tools import render_scene as rs_t
-    monkeypatch.setenv("GS_NATIVE", "0")
+    monkeypatch.setenv("GS_NATIVE", "0")      # both packages' numpy decoders
     src = _tool_scene(tmp_path, "ksplat", sh_degree=1)
     args = ["--width", "64", "--height", "48", "--sh", "1", "--frames", "2",
             "--orbit-degrees", "40", "--camera", "2.5,1.5,2.5"]

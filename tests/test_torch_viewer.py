@@ -47,7 +47,8 @@ FRAME_BARS = (1e-3, 1e-3)
 
 @pytest.fixture(autouse=True)
 def numpy_decoders(monkeypatch):
-    """The JAX package's numpy decoders, not its native library."""
+    """Both packages on their numpy decoders, not their native libraries
+    (both read GS_NATIVE)."""
     monkeypatch.setenv("GS_NATIVE", "0")
 
 
