@@ -58,7 +58,9 @@ Phases, each of which raises on failure (nonzero exit, no result line):
 9. the tools: B5 (tools/kernel_bench.py, the compositor ablation bench)
    launched 0 times by phases 3-8; every B5 variant against its plain
    version on the render-mixed records, with its time, its plain
-   version's time and mean exit_k, and the `full` variant's bound; then
+   version's time, mean exit_k and share of `full`, the `full` variant's
+   bound and the pair-warp visits its cull keeps, and B1's time on the
+   same records beside `full`'s; then
    each tool's entry point with the counters zeroed just before and read
    just after: kernel_bench.main() at its default size (2M, SH1, 1080p:
    the ablation, then B1 and B2 alone), profile_stages.main() (same
@@ -1609,7 +1611,8 @@ def b5_work(cr, pairs, exit_k, cfg):
     """What B5's `full` variant needs on these records: B1's tiers up to
     the cut-offs on the visits before its exit, then per contributing visit
     the clamp, w = alpha excl T, excl *= 1 - alpha and the three colour
-    FMAs, and per pixel and chunk T = max(T excl, floor)."""
+    FMAs, and per pixel and chunk T = max(T excl, floor); and, as for B1,
+    the pair-warp visits its per-warp cull keeps (cull_counts)."""
     counts, total = visit_counts(cr, pairs, exit_k, cfg)
     p, t = cfg.tile_size ** 2, cfg.num_tiles
     ops = (tier_ops(counts) + counts["contributing"] * OPS_B5_BLEND
@@ -1618,6 +1621,9 @@ def b5_work(cr, pairs, exit_k, cfg):
     # colors [T, P, 3], t [T, P] and exit_k written once
     nbytes = (total * 11 * 4 + 3 * t * 4 + t * p * 3 * 4 + t * p * 4
               + t * 4)
+    counts.update(cull_counts(pairs.records, (0, 1, 9, 10), cr.CHUNK,
+                              pairs.tile_starts, pairs.tile_counts, exit_k,
+                              cfg))
     return counts, ops, nbytes
 
 
@@ -1639,7 +1645,9 @@ def check_b5_all(kb, cr, splats, cam, cfg):
     version's max (p99.9 <= 1e-3, <= 0.1% over 1e-2), exit_k equal on >=
     99% of tiles; each variant's time (CUDA events), its plain version's
     time (one call) and its mean exit_k; `full`'s bound from the work its
-    data needs.  Launches made here are comparisons, not the path's."""
+    data needs and the pair-warp visits its cull keeps; B1's time on the
+    same records beside `full`'s.  Launches made here are comparisons, not
+    the path's."""
     from gaussiansplats3d_tpu_torch.render.binning import bin_sort_records
     from gaussiansplats3d_tpu_torch.render.projection import project_splats
     with torch.no_grad():
@@ -1669,10 +1677,13 @@ def check_b5_all(kb, cr, splats, cam, cfg):
             raise AssertionError(f"B5 {v} exit_k agrees on only {agree}")
         ms = cuda_ms(lambda: kb.variant_cuda(*args, v), reps=10)
         mean_exit = float(exit_k.double().mean())
+        # VARIANTS starts with `full`
+        share = ms / variants["full"]["ms"] if variants else 1.0
         variants[v] = {"ms": ms, "plain_ms": plain_ms,
                        "mean_exit_k": mean_exit, "exit_k_agree": agree,
-                       "errors": err}
-        log(f"B5 {v:12s}: time {ms:.3f} ms  plain {plain_ms:.1f} ms  mean "
+                       "share_of_full": share, "errors": err}
+        log(f"B5 {v:12s}: time {ms:.3f} ms ({share:.3f} of full)  plain "
+            f"{plain_ms:.1f} ms  mean "
             f"exit_k {mean_exit:.3f}  exit_k equal on {agree:.6f}; colors "
             f"p99.9 {err['colors']['p999_norm']:.3e} (of max "
             f"{err['colors']['scale']:.3e}), t p99.9 "
@@ -1681,13 +1692,18 @@ def check_b5_all(kb, cr, splats, cam, cfg):
             counts, ops, nbytes = b5_work(cr, pairs, exit_k, cfg)
             bound = bound_of(ops, nbytes)
     full = variants["full"]
-    for v in kb.VARIANTS:
-        variants[v]["share_of_full"] = variants[v]["ms"] / full["ms"]
+    # B1 on the same records, in the same phase: the kernel B5 splits
+    b1_ms = cuda_ms(lambda: cr.composite_fwd_cuda(*args), reps=10)
+    kept_share = counts["kept_pair_warps"] / max(counts["pair_warps"], 1)
     log(f"B5 full: bound {bound[0]:.4f} ms by {bound[1]} (ops bound "
         f"{bound[2]:.4f} ms: {ops} float32 operations; bytes bound "
         f"{bound[3]:.4f} ms: {nbytes} bytes); pairs visited "
         f"{counts['pairs']}, in box {counts['in_box']}, in cut-off "
-        f"{counts['in_cutoff']}, contributing {counts['contributing']}")
+        f"{counts['in_cutoff']}, contributing {counts['contributing']}; "
+        f"pair-warp visits {counts['pair_warps']}, kept by the cull "
+        f"{counts['kept_pair_warps']} ({kept_share:.4f})")
+    log(f"B5 full {full['ms']:.3f} ms beside B1 on the same records "
+        f"{b1_ms:.3f} ms ({full['ms'] / b1_ms:.3f} of B1)")
     return {"name": "kernel_bench", "route": "cuda",
             "source": "gaussiansplats3d_tpu_torch/csrc/kernel_bench.cu",
             "replaces": "gaussiansplats3d_tpu/tools/kernel_bench.py:45",
@@ -1697,7 +1713,8 @@ def check_b5_all(kb, cr, splats, cam, cfg):
             "ms": full["ms"], "plain_ms": full["plain_ms"],
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
             "variants": variants, "work": counts, "operations": ops,
-            "bytes": nbytes}
+            "bytes": nbytes, "kept_pair_warp_share": kept_share,
+            "b1_ms_same_records": b1_ms}
 
 
 def all_launches(cr, cs, kb):

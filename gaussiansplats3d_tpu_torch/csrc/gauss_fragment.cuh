@@ -1,5 +1,6 @@
 // The 3DGS Gaussian fragment at one pixel, shared by kernels B1
-// (composite_fwd.cu) and B2 (composite_bwd.cu, both passes) of the port.
+// (composite_fwd.cu), B2 (composite_bwd.cu, both passes) and B5
+// (kernel_bench.cu, the ablation bench on B1's layout) of the port.
 //
 // The arithmetic of the JAX package's pallas_rasterize.py::_composite_fwd
 // (and of the plain version, cuda_rasterize._chunk_pairs):

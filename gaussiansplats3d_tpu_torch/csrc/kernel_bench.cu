@@ -5,54 +5,74 @@
 // launched by `run`).  The Python side, its checks and its plain PyTorch
 // version live in tools/kernel_bench.py.
 //
-// Each variant is a clone of the 3DGS tile compositor's forward as it
-// stood when the bench was written, with one piece removed; only the
-// timings matter, several variants compute wrong colours on purpose.  The
-// variant is a template parameter, so each one compiles without the pieces
-// it removes.  B1's layout (csrc/composite_fwd.cu): one block per tile, one
-// thread per pixel (P = tile_size^2 <= 1024), each floor-aligned 128-pair
-// chunk staged in shared memory one record field per thread, lanes outside
-// the tile's [start, start + count) window skipped.
+// Each variant is a clone of the 3DGS tile compositor's forward with one
+// piece removed; only the timings matter, several variants compute wrong
+// colours on purpose.  The variant is a template parameter, so each one
+// compiles without the pieces it removes.  Every variant runs on B1's
+// layout (csrc/composite_fwd.cu), so that their differences split today's
+// B1: one block per tile (tile_size <= 32) of warp_cull::warps(ts) * 32 <=
+// 512 threads, each holding 2 pixels of its warp's 8 x 8 patch
+// (warp_cull::pixel; pixels past the tile's edge are not held and cast no
+// vote).  The tile's pair window [start, start + count) is read in
+// floor-aligned 128-pair chunks; for each chunk:
+//
+// 1. the chunk is staged in shared memory one record field per thread
+//    (coalesced), and each warp culls it against the rectangle of its
+//    pixels (warp_cull::cull): the pairs that may pass the box test at one
+//    of them;
+// 2. the warp walks the kept pairs in ascending order, both pixels at
+//    each pair, through B1's fragment (gauss_fragment.cuh: the box test,
+//    g, the g > 8 and min_alpha cut-offs, the 0.999 clamp);
+// 3. the tile votes (__syncthreads_or) whether any pixel it holds still
+//    has T > exit_t; the vote is also the barrier that lets the next
+//    chunk's staging overwrite this one.
 //
 // `full` (the reference of the others):
-//   alpha = opa * exp(-0.5 g),   g = a dx^2 + 2 b dx dy + c dy^2
-//   alpha = 0 where g > 8, alpha < min_alpha or |dx| > rx or |dy| > ry
-//   alpha = min(alpha, 0.999)
-//   w     = alpha * excl * T,    excl *= 1 - alpha   (exclusive product)
-//   col  += w * rgb
-// and at the end of each chunk T = max(T * excl, exp(-80)).  No log-T sum
-// and no per-chunk floor: that is B1's later design.  The tile stops at
-// k = num_chunks or once no pixel has T > 1e-4, tested after each chunk.
+//   w = alpha * excl * T,  excl *= 1 - alpha   (exclusive product)
+//   col += w * rgb
+// and at the end of each chunk T = max(T * excl, exp(-80)).  That is B1
+// less its log1p per visit (the log-T sum B2 replays) and its alpha
+// channel.  The tile stops at k = num_chunks or once no pixel has T > 1e-4.
 //
 // The others: log_scan (the prefix in log space: w = alpha exp(cl) T,
 // cl += log1p(-alpha), T = max(T exp(cl), exp(-80)); the TPU's mxu_scan_2/3
-// computed it on the matrix unit in bf16 limbs), exit_every4 (the max-T
-// test only when k % 4 == 0), no_exit (only k < num_chunks), no_scan
-// (w = alpha T and T never updated, so every chunk is walked), no_matmul
-// (col[c] += w of the chunk's lane c, c < 3: no colour read or blend),
-// dma_only (col += x of the staged chunk's lane 0 for every pixel and
-// channel, T stays 1: the global-to-shared load alone), grid_only (zeros,
-// T = 0, exit_k = num_chunks, no loop: the per-tile launch and prologue).
+// computed it on the matrix unit in bf16 limbs), exit_every4 (the vote only
+// when k % 4 == 0), no_exit (no vote: only k < num_chunks), no_scan
+// (w = alpha T and T never updated, so no tile exits), no_matmul (col[c] +=
+// w of the chunk's lane c, c < 3: no colour read or blend; a lane the warp
+// culls fails the box test at all its pixels, so the plain version's in-box
+// entries agree), dma_only (staging and the vote only, no cull and no walk:
+// col += x of the staged chunk's lane 0 at every held pixel and channel,
+// T stays 1), grid_only (zeros, T = 0, exit_k = num_chunks, no loop: the
+// per-tile launch and prologue at B1's block size).  Where a chunk has no
+// vote (exit_every4 off the multiples of 4, no_exit) a plain
+// __syncthreads() stands in for it, or the next staging would race the
+// walk.
 //
 // Records are field-major [11, S] float32 (NC = 3): x, y, conic a, b, c,
 // r, g, b, opacity, rx, ry.  Outputs: colors [T, P, 3], T itself (not
-// log T) [T, P], exit_k [T] int32.
+// log T) [T, P], exit_k [T] int32, with p = iy * ts + ix.
 //
-// What bounds it on the H100: as B1, the arithmetic of the pair-pixel
-// evaluations (every thread walks every pair of every chunk until the
-// exit); the records are read once per tile.  The design does nothing
-// about that: it is a measuring tool, and each variant keeps B1's simple
-// structure so that the differences between them are the pieces removed.
+// What bounds it on the H100: as B1, arithmetic, not memory (each record
+// is read once per chunk): the box tests and the exp of the visits in the
+// box, and the wait at each chunk's vote for the warp with the most kept
+// pairs.  The design takes B1's answers to that (the per-warp cull, one
+// pair's fields read once for two pixels, the weight's running product,
+// the tile's exit), so that each variant's time less `full`'s is the cost
+// of one piece of today's B1.
 
 #include <cuda_runtime.h>
 
+#include "gauss_fragment.cuh"
+#include "warp_cull.cuh"
+
 namespace {
 
-constexpr int kChunk = 128;
+using gauss::kChunk;
+using warp_cull::kPix;                     // pixels a thread
+constexpr int kThreads = 32 * 32 / kPix;   // enough for a 32 x 32 tile
 constexpr int kNC = 3;
 constexpr int kFields = kNC + 8;
-constexpr float kGaussianCutoff = 8.0f;
-constexpr float kAlphaClamp = 0.999f;
 
 enum Variant {
   kFull = 0,
@@ -65,8 +85,10 @@ enum Variant {
   kGridOnly = 7,
 };
 
+// 2 blocks an SM, as B1 ((512, 3) computed wrong results with
+// __syncthreads_or; PERF.md)
 template <int V>
-__global__ void __launch_bounds__(1024)
+__global__ void __launch_bounds__(kThreads, 2)
 variant_kernel(const float* __restrict__ rec, long long s_total,
                const int* __restrict__ starts,
                const int* __restrict__ counts,
@@ -77,38 +99,59 @@ variant_kernel(const float* __restrict__ rec, long long s_total,
   __shared__ float srec[kFields][kChunk];
 
   const int tile = blockIdx.x;
-  const int pix = threadIdx.x;
-  const int npix = blockDim.x;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int start = starts[tile];
   const int count = counts[tile];
   const int start_chunk = start / kChunk;
   const int num_chunks = (start % kChunk + count + kChunk - 1) / kChunk;
-  const long long out = static_cast<long long>(tile) * npix + pix;
+  const long long p = static_cast<long long>(ts) * ts;
 
   if (V == kGridOnly) {
 #pragma unroll
-    for (int c = 0; c < kNC; ++c) colors[out * kNC + c] = 0.0f;
-    t_out[out] = 0.0f;
-    if (pix == 0) exit_k[tile] = num_chunks;
+    for (int q = 0; q < kPix; ++q) {
+      int ix, iy;
+      warp_cull::pixel(ts, warp, q, lane, ix, iy);
+      if (!warp_cull::inside(ts, ix, iy)) continue;
+      const long long out = static_cast<long long>(tile) * p + iy * ts + ix;
+#pragma unroll
+      for (int c = 0; c < kNC; ++c) colors[out * kNC + c] = 0.0f;
+      t_out[out] = 0.0f;
+    }
+    if (tid == 0) exit_k[tile] = num_chunks;
     return;
   }
 
   const int id = ids[tile];
-  // GL pixel centre: y up, rows flipped at assembly.
-  const float px = static_cast<float>(id % tiles_x) * static_cast<float>(ts)
-                   + static_cast<float>(pix % ts) + 0.5f;
-  const float py = static_cast<float>(id / tiles_x) * static_cast<float>(ts)
-                   + static_cast<float>(pix / ts) + 0.5f;
+  const float tx = static_cast<float>(id % tiles_x) * static_cast<float>(ts);
+  const float ty = static_cast<float>(id / tiles_x) * static_cast<float>(ts);
+  const warp_cull::Rect rect = warp_cull::rect(tx, ty, ts, warp);
 
-  float col[kNC];
+  bool has[kPix];
+  float px[kPix], py[kPix];
+  float col[kPix][kNC];
+  float t[kPix];
 #pragma unroll
-  for (int c = 0; c < kNC; ++c) col[c] = 0.0f;
-  float t = 1.0f;
+  for (int q = 0; q < kPix; ++q) {
+    int ix, iy;
+    warp_cull::pixel(ts, warp, q, lane, ix, iy);
+    has[q] = warp_cull::inside(ts, ix, iy);
+    // GL pixel centre: y up, rows flipped at assembly.
+    px[q] = tx + static_cast<float>(ix) + 0.5f;
+    py[q] = ty + static_cast<float>(iy) + 0.5f;
+#pragma unroll
+    for (int c = 0; c < kNC; ++c) col[q][c] = 0.0f;
+    t[q] = 1.0f;
+  }
+
   int k = 0;
   while (k < num_chunks) {
     const long long base = static_cast<long long>(start_chunk + k) * kChunk;
-    __syncthreads();  // every thread is done with the previous chunk
-    for (int i = pix; i < kFields * kChunk; i += npix) {
+    // every thread is done with the previous chunk: it has passed the vote
+    // or the barrier that stands in for it
+    for (int i = tid; i < kFields * kChunk; i += nthreads) {
       const int f = i / kChunk;
       const int l = i - f * kChunk;
       const long long slot = base + l;
@@ -116,71 +159,93 @@ variant_kernel(const float* __restrict__ rec, long long s_total,
     }
     __syncthreads();
     ++k;
+    bool alive = false;
     if (V == kDmaOnly) {
+      // read after the barrier, so the staging is waited for and used
       const float v = srec[0][0];
 #pragma unroll
-      for (int c = 0; c < kNC; ++c) col[c] += v;
-      // T stays 1: the exit test below never stops the tile
-      if (!__syncthreads_or(t > exit_t)) break;
-      continue;
-    }
-    const int lo = max(static_cast<int>(start - base), 0);
-    const int hi = min(static_cast<int>(start + count - base), kChunk);
-    // exclusive product of 1 - alpha, or for log_scan its log
-    float excl = V == kLogScan ? 0.0f : 1.0f;
-    for (int l = lo; l < hi; ++l) {
-      const float dx = px - srec[0][l];
-      const float dy = py - srec[1][l];
-      if (fabsf(dx) > srec[kNC + 6][l] || fabsf(dy) > srec[kNC + 7][l]) {
-        continue;
-      }
-      const float g = srec[2][l] * dx * dx + 2.0f * srec[3][l] * dx * dy
-                      + srec[4][l] * dy * dy;
-      if (g > kGaussianCutoff) continue;
-      float alpha = srec[kNC + 5][l] * expf(-0.5f * g);
-      if (!(alpha >= min_alpha)) continue;
-      alpha = fminf(alpha, kAlphaClamp);
-      float w;
-      if (V == kNoScan) {
-        w = alpha * t;
-      } else if (V == kLogScan) {
-        w = alpha * (expf(excl) * t);
-        excl += log1pf(-alpha);
-      } else {
-        w = alpha * (excl * t);
-        excl *= 1.0f - alpha;
-      }
-      if (V == kNoMatmul) {
-        // lane l's weight into channel l (l < 3), with constant indices so
-        // col stays in registers
+      for (int q = 0; q < kPix; ++q) {
 #pragma unroll
-        for (int c = 0; c < kNC; ++c) {
-          if (l == c) col[c] += w;
+        for (int c = 0; c < kNC; ++c) col[q][c] += v;
+        // T stays 1: the vote never stops the tile
+        alive |= has[q] && t[q] > exit_t;
+      }
+    } else {
+      const int lo = max(static_cast<int>(start - base), 0);
+      const int hi = min(static_cast<int>(start + count - base), kChunk);
+      const warp_cull::Mask kept = warp_cull::cull(
+          srec[0], srec[1], srec[kNC + 6], srec[kNC + 7], lo, hi, rect, lane);
+
+      // the product of 1 - alpha over the chunk's earlier pairs, or for
+      // log_scan its log
+      float excl[kPix];
+#pragma unroll
+      for (int q = 0; q < kPix; ++q) excl[q] = V == kLogScan ? 0.0f : 1.0f;
+#pragma unroll 1
+      for (int j = 0; j < warp_cull::kWords; ++j) {
+        for (unsigned bits = warp_cull::word(kept, j); bits != 0;) {
+          const int l = j * 32 + warp_cull::pop_lowest(bits);
+#pragma unroll
+          for (int q = 0; q < kPix; ++q) {
+            gauss::Fragment f;
+            if (!has[q] || !gauss::fragment<kNC>(&srec[0][l], px[q], py[q],
+                                                 min_alpha, f)) {
+              continue;
+            }
+            float w;
+            if (V == kNoScan) {
+              w = f.alpha * t[q];
+            } else if (V == kLogScan) {
+              w = f.alpha * (expf(excl[q]) * t[q]);
+              excl[q] += log1pf(-f.alpha);
+            } else {
+              w = f.alpha * (excl[q] * t[q]);
+              excl[q] *= 1.0f - f.alpha;
+            }
+            if (V == kNoMatmul) {
+              // lane l's weight into channel l (l < 3), with constant
+              // indices so col stays in registers
+#pragma unroll
+              for (int c = 0; c < kNC; ++c) {
+                if (l == c) col[q][c] += w;
+              }
+            } else {
+#pragma unroll
+              for (int c = 0; c < kNC; ++c) col[q][c] += w * srec[5 + c][l];
+            }
+          }
         }
-      } else {
+      }
 #pragma unroll
-        for (int c = 0; c < kNC; ++c) col[c] += w * srec[5 + c][l];
+      for (int q = 0; q < kPix; ++q) {
+        if (V == kLogScan) {
+          t[q] = fmaxf(t[q] * expf(excl[q]), t_floor);
+        } else if (V != kNoScan) {
+          t[q] = fmaxf(t[q] * excl[q], t_floor);
+        }
+        alive |= has[q] && t[q] > exit_t;
       }
     }
-    if (V == kLogScan) {
-      t = fmaxf(t * expf(excl), t_floor);
-    } else if (V != kNoScan) {
-      t = fmaxf(t * excl, t_floor);
-    }
-    // The exit test before the next chunk, as B1 makes it (block-uniform:
-    // every thread has the same k and sees the same vote).  At k = 0 it
-    // would pass trivially (T = 1).
-    if (V == kExitEvery4) {
-      if (k % 4 == 0 && !__syncthreads_or(t > exit_t)) break;
-    } else if (V != kNoExit) {
-      if (!__syncthreads_or(t > exit_t)) break;
+    // The vote, block-uniform (every thread has the same k): a pixel past
+    // the tile's edge has none.  Without it, a plain barrier.
+    if (V == kNoExit || (V == kExitEvery4 && k % 4 != 0)) {
+      __syncthreads();
+    } else if (!__syncthreads_or(alive)) {
+      break;
     }
   }
 
 #pragma unroll
-  for (int c = 0; c < kNC; ++c) colors[out * kNC + c] = col[c];
-  t_out[out] = t;
-  if (pix == 0) exit_k[tile] = k;
+  for (int q = 0; q < kPix; ++q) {
+    if (!has[q]) continue;
+    int ix, iy;
+    warp_cull::pixel(ts, warp, q, lane, ix, iy);
+    const long long out = static_cast<long long>(tile) * p + iy * ts + ix;
+#pragma unroll
+    for (int c = 0; c < kNC; ++c) colors[out * kNC + c] = col[q][c];
+    t_out[out] = t[q];
+  }
+  if (tid == 0) exit_k[tile] = k;
 }
 
 template <int V>
@@ -206,9 +271,13 @@ extern "C" int kernel_bench_variant(int variant, const float* rec,
                                     float min_alpha, float t_floor,
                                     float exit_t, float* colors, float* t_out,
                                     int* exit_k, void* stream) {
+  if (warp_cull::warps(ts) * 32 > kThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (num_tiles > 0) {
     const dim3 grid(num_tiles);
-    const dim3 block(ts * ts);
+    // whole warps (the cull's ballots)
+    const dim3 block(warp_cull::warps(ts) * 32);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define B5_LAUNCH(V)                                                       \
   launch<V>(grid, block, s, rec, s_total, starts, counts, ids, ts, tiles_x, \

@@ -1,7 +1,7 @@
 // Per-warp pair cull and pixel layout, shared by the compositors B1-B4 of
 // the port (composite_fwd.cu, composite_bwd.cu, surfel_fwd.cu,
-// surfel_bwd.cu), and the per-pair warp reduction of the backward ones
-// (B2, B4).
+// surfel_bwd.cu) and the ablation bench B5 (kernel_bench.cu), and the
+// per-pair warp reduction of the backward ones (B2, B4).
 //
 // The cull.  A warp holds an 8 x 8 patch of its tile (pixel()), whose
 // pixel centres lie in a rectangle (Rect).  Once a 128-pair chunk is

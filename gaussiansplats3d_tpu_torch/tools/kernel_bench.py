@@ -14,23 +14,32 @@ wrong colours on purpose; only their timings matter.
 
 **B5 replaces** ``gaussiansplats3d_tpu/tools/kernel_bench.py::
 build_variant`` (the Pallas kernel ``kernel`` launched by ``run``).  The
-kernel source is ``csrc/kernel_bench.cu``: the layout B1 had when the bench
-was written (one block per tile, one thread per pixel, 128-pair chunks
-staged in shared memory, no per-warp cull), the variant a template
-parameter.  ``full`` is the forward as it stood when
-the JAX tool was written, not B1: an exclusive PRODUCT prefix of 1 - alpha
-for the weights, T = max(T * prod, exp(-80)) at the end of each chunk, no
-log-T sum and no per-chunk floor; its outputs are colours, T itself and
-exit_k.  The JAX tool's ``mxu_scan_2`` and ``mxu_scan_3`` computed the
-prefix in log space on the TPU's matrix unit through bf16 limbs (the digit
-is the number of limb passes, a TPU precision knob); they are one variant
-here, ``log_scan``, the same log-space prefix in float32 with no limbs.
-It is worth having beside ``full`` because B1 accumulates T in log space:
-the two side by side show what that choice costs on the card.
+kernel source is ``csrc/kernel_bench.cu``, the variant a template
+parameter, on B1's layout (``csrc/composite_fwd.cu``), so that the
+variants split today's B1: one block a tile of ``warp_cull::warps(ts) *
+32`` threads (512 at tile 32), each holding 2 pixels of its warp's 8 x 8
+patch; each 128-pair chunk staged in shared memory, culled per warp
+against its patch (``warp_cull.cuh``), the kept pairs walked in order
+through B1's fragment (``gauss_fragment.cuh``), and a vote after each
+chunk.  ``full`` is B1 less its log-T sum and its alpha channel: an
+exclusive PRODUCT prefix of 1 - alpha for the weights, T = max(T * prod,
+exp(-80)) at the end of each chunk, no per-chunk floor; its outputs are
+colours, T itself and exit_k.  The JAX tool's ``mxu_scan_2`` and
+``mxu_scan_3`` computed the prefix in log space on the TPU's matrix unit
+through bf16 limbs (the digit is the number of limb passes, a TPU
+precision knob); they are one variant here, ``log_scan``, the same
+log-space prefix in float32 with no limbs.  It is worth having beside
+``full`` because B1 accumulates T in log space: the two side by side show
+what that choice costs on the card.
 
-**What bounds it on the H100**: the arithmetic of the pair-pixel
-evaluations; it is a measuring tool and its variants keep that simple
-structure, so their differences are the pieces they remove.
+**What bounds it on the H100**: as B1, arithmetic: the box tests and the
+exp of the visits in the box, and at each chunk's vote the wait for the
+warp with the most kept pairs.  The kernel takes B1's design against that
+(the per-warp cull, a pair's fields read once for two pixels, the running
+product, the tile's exit), so the variants split today's B1.  A variant
+that never exits (``no_exit``, ``no_scan``, ``dma_only``) stages every
+chunk of the window where ``full`` stops at its exit, so its time is held
+against ``full``'s at the mean exit_k each prints.
 
 **Plain version** (:func:`composite_variant_torch`): the same functions in
 PyTorch, tiles in lockstep groups over the same chunk windows and exits, on

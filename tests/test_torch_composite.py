@@ -31,7 +31,7 @@ from gaussiansplats3d_tpu.render.pipeline import chans_from_colors_logt
 from gaussiansplats3d_tpu_torch.render import cuda_rasterize as cr
 
 from torch_port_common import (both_scenes, cuda_device, cull_case,  # noqa: F401
-                               edge_pairs, edge_windows, error_mass,
+                               edge_pairs, edge_records, error_mass,
                                interpret_pallas, scene_arrays)
 
 
@@ -387,25 +387,6 @@ def port_pairs(device, tile, seed, big=0.0, n=3000, width=200, height=150):
     return cfg, (pairs.records, pairs.tile_starts, pairs.tile_counts, ids)
 
 
-def edge_records(cfg, seed, device):
-    """Records built by hand over 2 x 2 tiles (edge_pairs at B2's warp
-    rectangles), in windows that start mid-chunk: flat Gaussians whose
-    box edge is at g = 1, random colours and opacities 0.3-0.9."""
-    x, y, rx, ry, tile = edge_pairs(cfg, seed, n=1200)
-    slot, starts, counts, cap = edge_windows(tile, cfg.num_tiles)
-    rng = np.random.default_rng(seed)
-    n = x.shape[0]
-    rec = np.zeros((11, cap), np.float32)
-    a, c = 0.5 / rx ** 2, 0.5 / ry ** 2
-    rec[:, slot] = np.stack([
-        x, y, a, 0.2 * np.sqrt(a * c) * rng.uniform(-1.0, 1.0, n), c,
-        *rng.uniform(0.0, 1.0, (3, n)), rng.uniform(0.3, 0.9, n), rx, ry])
-    return (torch.tensor(rec, device=device),
-            torch.tensor(starts, device=device),
-            torch.tensor(counts, device=device),
-            torch.arange(cfg.num_tiles, dtype=torch.int32, device=device))
-
-
 def assert_cuda_b1_matches_plain(cfg, inputs):
     """B1 launched once on the card against the plain B1: chans and log T
     p99.9 |d| <= 1e-3 and <= 0.1% over 1e-2, exit_k equal on >= 99% of
@@ -521,14 +502,15 @@ def test_build_names_libraries_by_source_and_needs_nvcc(monkeypatch):
 def test_build_hashes_the_gauss_fragment_header(monkeypatch):
     """B1 and both passes of B2 evaluate alpha with one header,
     csrc/gauss_fragment.cuh (B2 replays B1's chunk sums bit for bit where
-    T dies): both sources include it, and the library names hash it, so an
-    edited header renames both libraries and is rebuilt, never loaded
-    stale; a library that does not include it keeps its name."""
+    T dies), and so does B5 on B1's layout: the sources include it, and
+    the library names hash it, so an edited header renames the libraries
+    and is rebuilt, never loaded stale; a library that does not include it
+    keeps its name."""
     from gaussiansplats3d_tpu_torch import _build
 
     header = _build.CSRC / "gauss_fragment.cuh"
     names = {}
-    for k in ("composite_fwd", "composite_bwd"):
+    for k in ("composite_fwd", "composite_bwd", "kernel_bench"):
         assert _build._local_headers(_build.CSRC / f"{k}.cu") == [
             header, _build.CSRC / "warp_cull.cuh"]
         names[k] = _build._paths(k)[1].name
@@ -542,3 +524,4 @@ def test_build_hashes_the_gauss_fragment_header(monkeypatch):
     monkeypatch.setattr(_build.Path, "read_bytes", edited)
     assert all(_build._paths(k)[1].name != v for k, v in names.items())
     assert _build._paths("surfel_fwd")[1].name == surfel
+

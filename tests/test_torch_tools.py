@@ -42,8 +42,8 @@ from gaussiansplats3d_tpu_torch.utils import metrics
 from gaussiansplats3d_tpu_torch.utils import logging as glog
 from gaussiansplats3d_tpu_torch.viewer.enums import LogLevel
 
-from torch_port_common import (cuda_device, error_mass,  # noqa: F401
-                               interpret_pallas, scene_arrays)
+from torch_port_common import (cuda_device, edge_records,  # noqa: F401
+                               error_mass, interpret_pallas, scene_arrays)
 
 # JAX variant -> the port's
 JAX_VARIANTS = {"full": "full", "mxu_scan_2": "log_scan",
@@ -304,22 +304,10 @@ def test_utils_metrics_and_logging(tmp_path):
     assert logger.name == "gaussiansplats3d_tpu_torch"
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("tile", [16, 32])
-def test_cuda_b5_variants_match_plain(cuda_device, tile):
-    """Every B5 variant on the card against its plain version, at both
-    tile sizes (256 and 1024 threads a block)."""
-    arrays = scene_arrays(3000, seed=7, extent=1.0, scale_mul=3.0)
-    s = gt.SplatData.from_numpy(*arrays, device=cuda_device)
-    cam = gt.Camera.look_at((2.0, 1.2, 2.0), (0, 0, 0), aspect=4 / 3,
-                            device=cuda_device)
-    cfg = gt.RenderConfig(width=160, height=120, tile_size=tile)
-    from gaussiansplats3d_tpu_torch.render.binning import bin_sort_records
-    from gaussiansplats3d_tpu_torch.render.projection import project_splats
-    with torch.no_grad():
-        q = bin_sort_records(project_splats(s, cam, cfg), cfg)
-    ids = torch.arange(cfg.num_tiles, dtype=torch.int32, device=cuda_device)
-    args = (q.records, q.tile_starts, q.tile_counts, ids, cfg)
+def assert_cuda_b5_matches_plain(args):
+    """Every B5 variant launched once on the card against its plain
+    version: colors and T normalised by the plain max, p99.9 <= 1e-3 and
+    <= 0.1% over 1e-2; exit_k equal on >= 99% of tiles."""
     for v in kb.VARIANTS:
         before = kb.launches
         got = kb.variant_cuda(*args, v)
@@ -331,6 +319,37 @@ def test_cuda_b5_variants_match_plain(cuda_device, tile):
             p999, over = error_mass((a / scale).cpu(), (b / scale).cpu())
             assert p999 <= 1e-3 and over <= 1e-3, v
         assert float((got[2] == ref[2]).double().mean()) >= 0.99, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [12, 16, 20, 32])
+def test_cuda_b5_variants_match_plain(cuda_device, tile):
+    """Every B5 variant on the card against its plain version, at tiles
+    12, 16, 20 and 32 (128 to 512 threads a block; warp patches cut at
+    the tile's edge at 12 and 20)."""
+    arrays = scene_arrays(3000, seed=7, extent=1.0, scale_mul=3.0)
+    s = gt.SplatData.from_numpy(*arrays, device=cuda_device)
+    cam = gt.Camera.look_at((2.0, 1.2, 2.0), (0, 0, 0), aspect=4 / 3,
+                            device=cuda_device)
+    cfg = gt.RenderConfig(width=160, height=120, tile_size=tile)
+    from gaussiansplats3d_tpu_torch.render.binning import bin_sort_records
+    from gaussiansplats3d_tpu_torch.render.projection import project_splats
+    with torch.no_grad():
+        q = bin_sort_records(project_splats(s, cam, cfg), cfg)
+    ids = torch.arange(cfg.num_tiles, dtype=torch.int32, device=cuda_device)
+    assert_cuda_b5_matches_plain(
+        (q.records, q.tile_starts, q.tile_counts, ids, cfg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [12, 16, 32])
+def test_cuda_b5_pairs_at_warp_edges(cuda_device, tile):
+    """Every B5 variant against its plain version on hand-built records
+    whose pairs sit just inside and just outside a warp's rectangle
+    (edge_records), in windows that start mid-chunk."""
+    cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile)
+    assert_cuda_b5_matches_plain(
+        (*edge_records(cfg, 52 + tile, cuda_device), cfg))
 
 
 @pytest.mark.cuda

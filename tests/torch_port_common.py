@@ -81,6 +81,25 @@ def edge_windows(tile, num_tiles, gap=37):
     return slot, starts.astype(np.int32), counts.astype(np.int32), cap
 
 
+def edge_records(cfg, seed, device):
+    """Records built by hand over 2 x 2 tiles (edge_pairs at B2's warp
+    rectangles), in windows that start mid-chunk: flat Gaussians whose
+    box edge is at g = 1, random colours and opacities 0.3-0.9."""
+    x, y, rx, ry, tile = edge_pairs(cfg, seed, n=1200)
+    slot, starts, counts, cap = edge_windows(tile, cfg.num_tiles)
+    rng = np.random.default_rng(seed)
+    n = x.shape[0]
+    rec = np.zeros((11, cap), np.float32)
+    a, c = 0.5 / rx ** 2, 0.5 / ry ** 2
+    rec[:, slot] = np.stack([
+        x, y, a, 0.2 * np.sqrt(a * c) * rng.uniform(-1.0, 1.0, n), c,
+        *rng.uniform(0.0, 1.0, (3, n)), rng.uniform(0.3, 0.9, n), rx, ry])
+    return (torch.tensor(rec, device=device),
+            torch.tensor(starts, device=device),
+            torch.tensor(counts, device=device),
+            torch.arange(cfg.num_tiles, dtype=torch.int32, device=device))
+
+
 def cull_case(cfg, seed):
     """The per-pixel box test against the per-warp cull's plain mirror on
     :func:`edge_pairs`: (hit, keep), [n, W] bool each.  hit: some pixel of
