@@ -126,7 +126,22 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    checked each time): both host times, and per field the error mass of
    native against numpy (max and p99.9 of |d|, the share over 1e-6);
    raises on any |d| over 1e-6 and on any difference in colors or
-   opacities.
+   opacities;
+13. the main path at tile 64 (the same scene, 1920x1080 in 510 tiles):
+   B1-B5 hold a tile of side 33-64 as a thread-block cluster of four 32 x
+   32 blocks.  B1, B2 and B5's `full` on the render-mixed records, B3 and
+   B4 on the 2d-mixed ones, each kernel on every tile against its plain
+   version on every T64_PLAIN_EVERY-th tile by the bars of phase 2 (B2 and
+   B4 compared on those tiles' window slots), with its time, the plain
+   version's, its bound from this run's work on every tile and the card's
+   cudaOccupancyMaxActiveClusters; then phases 3, 5 and 8's render and
+   step at tile 64 (main_path, train_path, main_path_2d, train_path_2d:
+   both configurations of each, their counters and checks; B5 launched 0
+   times), each median beside the tile-32 one of this run, and the
+   torch.profiler views of phases 4 and 5 at tile 64.  The kernels
+   line's entries gain per_tile["64"]: the kernel's tile-64 ms, its
+   tile-32 ms, plain ms and tiles, bound, largest difference, clusters and
+   the tile-64 paths' launches.
 
 Prints a {"native": ...} line (the build, phase 10's loads, phase 12), a
 {"kernels": [...]} line, and last {"ok": true, "device": ...}.
@@ -271,6 +286,12 @@ CONFIG4_STEPS = 3
 N_ACCEPT2, N_ACCEPT3 = 1_000_000, 5_000_000
 NATIVE_ATOL = 1e-6
 DECODE_REPS = 2
+# Phase 13: the tile side of its main path (B1-B5 hold a tile of 33-64 as a
+# cluster of four 32 x 32 blocks), and the share of its 510 tiles the plain
+# versions run on (every 8th: the plain B4 takes ~7.5 s on all 2,040 tiles
+# of 32); the kernels run on every tile.
+TILE_64 = 64
+T64_PLAIN_EVERY = 8
 
 
 # what the {"native": ...} line reports: the build (phase 1), the viewer's
@@ -2903,6 +2924,218 @@ def multi_gpu_slice(gt, cr, cs, kb, splats, cam, cfg, device):
     return res, tally.by_path
 
 
+# --- phase 13: the tile-64 main path ----------------------------------------
+
+def plain_subset(args, every):
+    """Every ``every``-th tile of a compositor's (records, starts, counts,
+    ids): the tiles the plain version runs on, and their indices."""
+    sel = torch.arange(0, args[1].shape[0], every, device=args[1].device)
+    return (args[0],) + tuple(a[sel].contiguous() for a in args[1:4]), sel
+
+
+def window_mask(starts, counts, capacity):
+    """[capacity] bool: the slots of the windows [start, start + count)."""
+    n = counts.long()
+    total = int(n.sum())
+    first = torch.cumsum(n, 0) - n
+    tile = torch.repeat_interleave(torch.arange(n.shape[0],
+                                                device=n.device), n,
+                                   output_size=total)
+    slot = starts.long()[tile] + torch.arange(total, device=n.device) \
+        - first[tile]
+    mask = torch.zeros(capacity, dtype=torch.bool, device=n.device)
+    mask[slot] = True
+    return mask
+
+
+def t64_entry(name, ms, plain_ms, plain_tiles, work, max_abs, clusters):
+    """A kernel's tile-64 record: its time on every tile, the plain
+    version's on the subset, the bound from this run's work on every tile,
+    the largest difference and the card's cudaOccupancyMaxActiveClusters."""
+    counts, ops, nbytes = work
+    bound_ms, bound_by, ops_ms, bytes_ms = bound_of(ops, nbytes)
+    log(f"{name} tile {TILE_64}: time {ms:.3f} ms  plain {plain_ms:.1f} ms "
+        f"on {plain_tiles} tiles  bound {bound_ms:.4f} ms by {bound_by} "
+        f"(ops {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms); pairs "
+        f"{counts['pairs']}, in box {counts['in_box']}, contributing "
+        f"{counts['contributing']}; pair-warp visits {counts['pair_warps']},"
+        f" kept {counts['kept_pair_warps']}; max |d| {max_abs:.3e}; "
+        f"max active clusters {clusters}")
+    return {"ms": ms, "plain_ms": plain_ms, "plain_tiles": plain_tiles,
+            "bound_ms": bound_ms, "bound_by": bound_by, "work": counts,
+            "operations": ops, "bytes": nbytes, "max_abs_err": max_abs,
+            "max_active_clusters": clusters}
+
+
+def t64_gaussians(gt_build, cr, kb, splats, cam, cfg):
+    """B1, B2 and B5's `full` at tile 64 on the render-mixed records: the
+    kernels on every tile, their plain versions on every
+    T64_PLAIN_EVERY-th (B2's gradient compared on those tiles' window
+    slots, each written by its tile alone), by the bars of phase 2."""
+    from gaussiansplats3d_tpu_torch.render.binning import bin_sort_records
+    from gaussiansplats3d_tpu_torch.render.projection import project_splats
+    with torch.no_grad():
+        pairs = bin_sort_records(project_splats(splats, cam, cfg), cfg)
+    ids = torch.arange(cfg.num_tiles, dtype=torch.int32,
+                       device=splats.device)
+    args = (pairs.records, pairs.tile_starts, pairs.tile_counts, ids)
+    sub, sel = plain_subset(args, T64_PLAIN_EVERY)
+    n_sub = int(sel.shape[0])
+    name = f"tile-{TILE_64}"
+    out = {}
+
+    chans, logt, exit_k = cr.composite_fwd_cuda(*args, cfg)
+    torch.cuda.synchronize()
+    ref, plain_ms = timed_once(lambda: cr.composite_fwd_torch(*sub, cfg))
+    err = compare_forward(
+        "B1", name, [("chans", chans[sel], ref[0], BAR_P999["chans"]),
+                     ("logt", logt[sel], ref[1], BAR_P999["logt"])],
+        ref[2], exit_k[sel], n_sub)
+    ms = cuda_ms(lambda: cr.composite_fwd_cuda(*args, cfg), reps=10)
+    out["composite_fwd"] = t64_entry(
+        "B1", ms, plain_ms, n_sub, b1_work(cr, pairs, exit_k, cfg),
+        max(err["chans"]["max_abs"], err["logt"]["max_abs"]),
+        gt_build.max_active_clusters("composite_fwd", 3))
+    out["composite_fwd"]["mean_exit_k"] = float(exit_k.double().mean())
+
+    gch = color_loss_cotangent(chans, cfg)
+    bargs = args + (logt, exit_k, gch, cfg)
+    grad = cr.composite_bwd_cuda(*bargs)
+    torch.cuda.synchronize()
+    ref, plain_ms = timed_once(lambda: cr.composite_bwd_torch(
+        *sub, logt[sel].contiguous(), exit_k[sel].contiguous(),
+        gch[sel].contiguous(), cfg))
+    mask = window_mask(sub[1], sub[2], grad.shape[1])
+    rows = compare_grad_rows("B2", name, grad[:, mask], ref[:, mask])
+    if len(rows) != grad.shape[0] - 2:
+        raise AssertionError(f"B2 on {name}: a record row has no gradient")
+    ms = cuda_ms(lambda: cr.composite_bwd_cuda(*bargs), reps=10)
+    out["composite_bwd"] = t64_entry(
+        "B2", ms, plain_ms, n_sub, b2_work(cr, pairs, exit_k, cfg),
+        max(r["max_abs"] for r in rows),
+        gt_build.max_active_clusters("composite_bwd", 3))
+
+    colors, trans, exit_k = kb.variant_cuda(*args, cfg, "full")
+    torch.cuda.synchronize()
+    ref, plain_ms = timed_once(lambda: kb.composite_variant_torch(
+        *sub, cfg, "full"))
+    max_abs = 0.0
+    for field, a, b in (("colors", colors[sel], ref[0]),
+                        ("t", trans[sel], ref[1])):
+        scale = max(float(b.abs().max()), 1e-30)
+        mx, p999, over = error_mass(a / scale, b / scale)
+        log(f"B5 full vs plain, {name}, {field}: normalised max {mx:.3e}  "
+            f"p99.9 {p999:.3e}  share over 1e-2 {over:.3e}")
+        if not (p999 <= BAR_P999["chans"] and over <= BAR_OVER):
+            raise AssertionError(f"B5 full disagrees with its plain version"
+                                 f" on {name} {field}")
+        max_abs = max(max_abs, float((a - b).abs().max()))
+    agree = float((exit_k[sel] == ref[2]).double().mean())
+    if agree < BAR_EXIT_AGREE:
+        raise AssertionError(f"B5 full exit_k agrees on only {agree} "
+                             f"({name})")
+    ms = cuda_ms(lambda: kb.variant_cuda(*args, cfg, "full"), reps=10)
+    out["kernel_bench"] = t64_entry(
+        "B5 full", ms, plain_ms, n_sub, b5_work(cr, pairs, exit_k, cfg),
+        max_abs, gt_build.max_active_clusters("kernel_bench", 0))
+    return out
+
+
+def t64_surfels(gt_build, cs, splats, cam, cfg):
+    """B3 and B4 at tile 64 on the 2d-mixed records, as t64_gaussians."""
+    args, overflow = surfel_inputs(splats, cam, cfg)
+    sub, sel = plain_subset(args, T64_PLAIN_EVERY)
+    n_sub = int(sel.shape[0])
+    name = f"2d tile-{TILE_64}"
+    out = {}
+    colors, logt, exit_k = cs.composite_surfel_fwd_cuda(*args, cfg)
+    torch.cuda.synchronize()
+    ref, plain_ms = timed_once(
+        lambda: cs.composite_surfel_fwd_torch(*sub, cfg))
+    err = compare_forward(
+        "B3", name, [("colors", colors[sel], ref[0], BAR_P999["chans"]),
+                     ("logt", logt[sel], ref[1], BAR_P999["logt"])],
+        ref[2], exit_k[sel], n_sub)
+    ms = cuda_ms(lambda: cs.composite_surfel_fwd_cuda(*args, cfg), reps=10)
+    out["surfel_fwd"] = t64_entry(
+        "B3", ms, plain_ms, n_sub, b3_work(cs, args, exit_k, cfg),
+        max(err["colors"]["max_abs"], err["logt"]["max_abs"]),
+        gt_build.max_active_clusters("surfel_fwd", 3))
+    out["surfel_fwd"]["overflow"] = overflow
+
+    gcol, glogt = surfel_cotangents(colors, logt, cfg)
+    bargs = args + (logt, exit_k, gcol, glogt, cfg)
+    grad = cs.composite_surfel_bwd_cuda(*bargs)
+    torch.cuda.synchronize()
+    ref, plain_ms = timed_once(lambda: cs.composite_surfel_bwd_torch(
+        *sub, logt[sel].contiguous(), exit_k[sel].contiguous(),
+        gcol[sel].contiguous(), glogt[sel].contiguous(), cfg))
+    mask = window_mask(sub[1], sub[2], grad.shape[1])
+    rows = compare_grad_rows("B4", name, grad[:, mask], ref[:, mask])
+    if not set(range(9, grad.shape[0] - 2)) <= {r["row"] for r in rows}:
+        raise AssertionError(f"B4 on {name}: a center, channel or opacity "
+                             f"row has no gradient")
+    ms = cuda_ms(lambda: cs.composite_surfel_bwd_cuda(*bargs), reps=10)
+    out["surfel_bwd"] = t64_entry(
+        "B4", ms, plain_ms, n_sub, b4_work(cs, args, exit_k, cfg),
+        max(r["max_abs"] for r in rows),
+        gt_build.max_active_clusters("surfel_bwd", 3))
+    return out
+
+
+def tile64_slice(gt, gt_build, cr, cs, kb, splats, cam, cfg, t32):
+    """Phase 13: the main path at tile 64 (B1-B5 hold each 64 x 64 tile as
+    a cluster of four 32 x 32 blocks): B1, B2 and B5's `full`, then B3 and
+    B4, against their plain versions (t64_gaussians, t64_surfels); then
+    the render and the step in 3D and 2D through render() by the functions
+    of phases 3, 5 and 8, each with its counters, beside the tile-32
+    medians of this run (``t32``: path -> configuration -> ms).  Returns
+    the kernels' records and the (B1, ..., B5) launches of each path."""
+    t_phase = time.perf_counter()
+    cfg64 = cfg.replace(tile_size=TILE_64)
+    cfg64_2d = cfg64.replace(render_mode_2d=True)
+    log(f"phase 13: tile {TILE_64}, {cfg64.num_tiles} tiles "
+        f"({cfg64.tiles_x} x {cfg64.tiles_y}); the plain versions on every "
+        f"{T64_PLAIN_EVERY}th")
+    kernels = t64_gaussians(gt_build, cr, kb, splats, cam, cfg64)
+    kernels.update(t64_surfels(gt_build, cs, splats, cam, cfg64_2d))
+    kb.reset_launches()
+    cs.reset_launches()
+    runs, render_b1 = main_path(gt, cr, splats, cam, cfg64)
+    steps, (step_b1, step_b2) = train_path(gt, cr, splats, cam, cfg64)
+    if (cs.launches, cs.bwd_launches) != (0, 0):
+        raise AssertionError("B3 or B4 launched on a 3D path at tile 64")
+    run2d = main_path_2d(gt, cr, cs, splats, cam, cfg64_2d)
+    step2d = train_path_2d(gt, cr, cs, splats, cam, cfg64_2d)
+    # device time, idle share and top kernels at tile 64, as phases 4 and
+    # 5 read them at tile 32
+    profiles = {"render": profile_render(gt, splats, cam, cfg64,
+                                         runs["mixed"]["median_ms"]),
+                "train_step": profile_step(gt, splats, cam, cfg64,
+                                           steps["mixed"]["median_ms"])}
+    if kb.launches != 0:
+        raise AssertionError(f"B5 launched {kb.launches} times on the "
+                             f"tile-{TILE_64} paths")
+    medians = {"render": {k: r["median_ms"] for k, r in runs.items()},
+               "train_step": {k: r["median_ms"] for k, r in steps.items()},
+               "render_2d": {"2d-mixed": run2d["median_ms"]},
+               "train_step_2d": {"2d-mixed": step2d["median_ms"]}}
+    for path, by_config in medians.items():
+        for c, ms in by_config.items():
+            log(f"tile {TILE_64} {path} {c}: median {ms:.2f} ms; tile 32 in "
+                f"this run {t32[path][c]:.2f} ms")
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 13 (tile {TILE_64}): {seconds:.1f} s")
+    launches = {
+        f"tile-{TILE_64} render": (render_b1, 0, 0, 0, 0),
+        f"tile-{TILE_64} train_step": (step_b1, step_b2, 0, 0, 0),
+        f"tile-{TILE_64} render_2d": run2d["launches_b1_b2_b3_b4"] + (0,),
+        f"tile-{TILE_64} train_step_2d":
+            step2d["launches_b1_b2_b3_b4"] + (0,)}
+    return {"kernels": kernels, "median_ms": medians, "seconds": seconds,
+            "tile_32_median_ms": t32, "profiles": profiles}, launches
+
+
 # --- phase 12: the native scene decoders at full size -----------------------
 def decode_timed(gio, data, fmt, decoder):
     """(SplatData on the CPU, host ms of each of DECODE_REPS decodes of the
@@ -3109,6 +3342,24 @@ def main():
         entry["max_abs_err"] = max(entry["max_abs_err"], rec[err])
     NATIVE["decoders"], NATIVE["phase12_seconds"] = native_decoders(
         gt, device)
+    t64, t64_paths = tile64_slice(
+        gt, _build, cr, cs, kb, splats, cam, cfg,
+        {"render": {k: r["median_ms"] for k, r in runs.items()},
+         "train_step": {k: r["median_ms"] for k, r in steps.items()},
+         "render_2d": {"2d-mixed": run2d["median_ms"]},
+         "train_step_2d": {"2d-mixed": step2d["median_ms"]}})
+    for i, entry in enumerate((b1, b2, b3, b4, b5)):
+        rec = t64["kernels"][entry["name"]]
+        rec["launches"] = {p: n[i] for p, n in t64_paths.items()}
+        rec["ms_tile_32"] = entry["ms"]
+        entry["per_tile"] = {str(TILE_64): rec}
+        entry["max_abs_err"] = max(entry["max_abs_err"], rec["max_abs_err"])
+        paths = {p: n[i] for p, n in t64_paths.items() if n[i]}
+        entry["launches"] += sum(paths.values())
+        entry["launches_by_path"].update(paths)
+    b1["tile_64_median_ms"] = t64["median_ms"]
+    b1["tile_64_profiles"] = t64["profiles"]
+    b1["tile_64_seconds"] = t64["seconds"]
     log(json.dumps({"native": NATIVE}))
     log(json.dumps({"kernels": [b1, b2, b3, b4, b5]}))
     log(json.dumps({"ok": True, "device": {

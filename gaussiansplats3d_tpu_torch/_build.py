@@ -108,6 +108,23 @@ def load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+def max_active_clusters(name: str, arg: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of kernel ``name``'s cluster
+    instantiation (the one that holds a tile of side 33-64 as 4 blocks):
+    how many of its 4-block clusters the current CUDA device holds at
+    once.  ``arg``: the channels (3 or 4) for B1-B4; 0 (`full`) for B5
+    (``kernel_bench``).  Raises RuntimeError on a CUDA error."""
+    fn = getattr(load(name), f"{name}_max_clusters")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    clusters = ctypes.c_int(0)
+    err = fn(arg, ctypes.byref(clusters))
+    if err != 0:
+        raise RuntimeError(f"{name}: cudaOccupancyMaxActiveClusters failed:"
+                           f" CUDA error {err}")
+    return clusters.value
+
+
 def ptxas_report(name: str) -> str:
     """What ``-Xptxas -v`` said when ``name`` was built (registers, shared
     memory, spills), or '' if the library came from an earlier build."""

@@ -209,8 +209,11 @@ class RenderConfig:
         if self.record_precision not in ("f32", "mixed", "packed"):
             raise ValueError(
                 "record_precision must be 'f32', 'mixed' or 'packed'")
-        if not 1 <= self.tile_size * self.tile_size <= 1024:
-            raise ValueError("tile_size^2 must be in [1, 1024]")
+        # the JAX package divides by the side (tiles_x); any side >= 1
+        # renders, and the CUDA compositors take sides up to 64
+        # (render/cuda_rasterize.py: MAX_CUDA_TILE)
+        if self.tile_size < 1:
+            raise ValueError("tile_size must be >= 1")
 
     @property
     def tiles_x(self) -> int:

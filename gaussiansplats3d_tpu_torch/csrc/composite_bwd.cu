@@ -5,13 +5,19 @@
 // _bwd_one_tile).  The Python side, its checks and its plain PyTorch
 // version (composite_bwd_torch) live in render/cuda_rasterize.py.
 //
-// One block per tile (tile_size <= 32) of up to 512 threads, each holding
-// 2 pixels, B1's layout: a warp holds an 8 x 8 patch of the tile, lane l
-// the pixels (l % 8, l / 8) and (l % 8, l / 8 + 4) of it
-// (warp_cull::pixel), so a pair's box covers few warps and many of their
-// lanes; pixels past the tile's edge are masked (has[q]).  The tile's
-// chunks are replayed in reverse, from exit_k - 1 down to 0: chunks at or
-// past exit_k never ran forward and contribute nothing.  For each chunk:
+// One block per tile of side <= 32, of up to 512 threads, each holding 2
+// pixels, B1's layout: a warp holds an 8 x 8 patch of the tile, lane l the
+// pixels (l % 8, l / 8) and (l % 8, l / 8 + 4) of it (warp_cull::pixel),
+// so a pair's box covers few warps and many of their lanes; pixels past
+// the tile's edge are masked (has[q]).  A tile of side 33-64 is, as in B1,
+// a thread-block cluster of 4 blocks of 512 threads, block r on the 32 x
+// 32 quadrant (r % 2, r / 2) (warp_cull.cuh: the layout); every block
+// replays the tile's chunks for its own pixels into its own sacc, and step
+// 5 adds the four blocks' sums through distributed shared memory.  The
+// cluster is the template parameter Q (1 or 4), chosen by the side: the Q
+// = 1 instantiation is the tile-32 kernel.  The tile's chunks are
+// replayed in reverse, from exit_k - 1 down to 0: chunks at or past exit_k
+// never ran forward and contribute nothing.  For each chunk:
 //
 // 1. the chunk's 128 records are staged in shared memory, and each warp
 //    culls them against the rectangle of its pixels (warp_cull.cuh): a
@@ -53,7 +59,10 @@
 // 5. the window's slots of sacc are written to grad.  A slot lies in
 //    exactly one tile's window, so the writes are exclusive: no global
 //    atomics and no read-modify-write of chunks shared by two tiles (the
-//    Pallas kernel's boundary-chunk RMW is a TPU mechanism).  The wrapper
+//    Pallas kernel's boundary-chunk RMW is a TPU mechanism).  Over a
+//    cluster, block r adds lanes [32 r, 32 r + 32) of the four blocks'
+//    sacc and writes those slots (warp_cull::cluster_write), between two
+//    cluster barriers, so each slot is still written once.  The wrapper
 //    zero-fills grad; rx, ry and slots outside the windows stay 0.
 //
 // What bounds it on the H100: arithmetic, not memory (records are read
@@ -80,8 +89,9 @@ using warp_cull::kFull;
 using warp_cull::kPix;                      // pixels a thread
 constexpr int kThreads = 32 * 32 / kPix;   // enough for a 32 x 32 tile
 
-// 2 blocks an SM: 64 registers a thread (PERF.md has ptxas's report)
-template <int NC>
+// 2 blocks an SM: 64 registers a thread (PERF.md has ptxas's report); Q
+// blocks a tile
+template <int NC, int Q>
 __global__ void __launch_bounds__(kThreads, 2)
 composite_bwd_kernel(const float* __restrict__ rec, long long s_total,
                      const int* __restrict__ starts,
@@ -97,7 +107,8 @@ composite_bwd_kernel(const float* __restrict__ rec, long long s_total,
   __shared__ float srec[kFields][kChunk];
   __shared__ float sacc[kTerms][kAccStride];
 
-  const int tile = blockIdx.x;
+  int quad;
+  const int tile = warp_cull::tile_of_block<Q>(quad);
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int lane = tid & 31;
@@ -109,7 +120,8 @@ composite_bwd_kernel(const float* __restrict__ rec, long long s_total,
   const float tx = static_cast<float>(id % tiles_x) * static_cast<float>(ts);
   const float ty = static_cast<float>(id / tiles_x) * static_cast<float>(ts);
   const int warp = tid >> 5;
-  const warp_cull::Rect rect = warp_cull::rect(tx, ty, ts, warp);
+  const warp_cull::Rect rect = warp_cull::rect<Q>(tx, ty, ts, warp, quad);
+  const bool held = warp_cull::held<Q>(ts, quad, warp);
   // the term whose warp total the reduce-scatter leaves on this lane
   const int term_of_lane = warp_cull::reduced_term<kTerms>(lane);
 
@@ -120,7 +132,7 @@ composite_bwd_kernel(const float* __restrict__ rec, long long s_total,
 #pragma unroll
   for (int q = 0; q < kPix; ++q) {
     int ix, iy;
-    warp_cull::pixel(ts, warp, q, lane, ix, iy);
+    warp_cull::pixel<Q>(ts, warp, q, lane, ix, iy, quad);
     has[q] = warp_cull::inside(ts, ix, iy);
     const int pp = has[q] ? iy * ts + ix : 0;
     // GL pixel centre, as B1 computes it
@@ -152,8 +164,9 @@ composite_bwd_kernel(const float* __restrict__ rec, long long s_total,
     __syncthreads();
     const int lo = max(static_cast<int>(start - base), 0);
     const int hi = min(static_cast<int>(start + count - base), kChunk);
-    const warp_cull::Mask kept = warp_cull::cull(
+    warp_cull::Mask kept = warp_cull::cull(
         srec[0], srec[1], srec[NC + 6], srec[NC + 7], lo, hi, rect, lane);
+    if (!held) kept = {};  // a patch past the tile's edge (Q > 1 only)
 
     // T before the pair being swept is exp(t_base - rest).  Where B1's
     // chunk sum is at least cs_floor, logt_before = logt_after - sum, so
@@ -254,22 +267,49 @@ composite_bwd_kernel(const float* __restrict__ rec, long long s_total,
 #pragma unroll
       for (int q = 0; q < kPix; ++q) lt_before[q] = lt_after[q] - rest[q];
     }
-    __syncthreads();
-    for (int i = tid; i < kTerms * kChunk; i += nthreads) {
-      const int f = i / kChunk;
-      const int l = i - f * kChunk;
-      if (l >= lo && l < hi) grad[f * s_total + base + l] = sacc[f][l];
+    if constexpr (Q == 1) {
+      __syncthreads();
+      for (int i = tid; i < kTerms * kChunk; i += nthreads) {
+        const int f = i / kChunk;
+        const int l = i - f * kChunk;
+        if (l >= lo && l < hi) grad[f * s_total + base + l] = sacc[f][l];
+      }
+    } else {
+      warp_cull::cluster_write<kTerms>(&sacc[0][0], grad, s_total, base, lo,
+                                       hi);
     }
 #pragma unroll
     for (int q = 0; q < kPix; ++q) lt_after[q] = lt_before[q];
   }
 }
 
+template <int Q>
+cudaError_t launch(int nc, int num_tiles, int ts, cudaStream_t s,
+                   const float* rec, long long s_total, const int* starts,
+                   const int* counts, const int* ids, const float* logt,
+                   const int* exit_k, const float* gchans, int tiles_x,
+                   float min_alpha, float cs_floor, float* grad) {
+  if (nc == 3) {
+    return warp_cull::launch_tiles<Q>(
+        composite_bwd_kernel<3, Q>, num_tiles, ts, s, rec, s_total, starts,
+        counts, ids, logt, exit_k, gchans, ts, tiles_x, min_alpha, cs_floor,
+        grad);
+  }
+  if (nc == 4) {
+    return warp_cull::launch_tiles<Q>(
+        composite_bwd_kernel<4, Q>, num_tiles, ts, s, rec, s_total, starts,
+        counts, ids, logt, exit_k, gchans, ts, tiles_x, min_alpha, cs_floor,
+        grad);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// Launches B2 on `stream` over num_tiles tiles and returns
-// cudaGetLastError() (0 when the launch was accepted).  grad must be
-// zero-filled by the caller.
+// Launches B2 on `stream` over num_tiles tiles and returns the launch's
+// error or cudaGetLastError() (0 when the launch was accepted).  grad must
+// be zero-filled by the caller.  A side above 64 is refused
+// (cudaErrorInvalidValue).
 extern "C" int composite_bwd(const float* rec, long long s_total, int nc,
                              const int* starts, const int* counts,
                              const int* ids, const float* logt,
@@ -277,25 +317,30 @@ extern "C" int composite_bwd(const float* rec, long long s_total, int nc,
                              int num_tiles, int ts, int tiles_x,
                              float min_alpha, float cs_floor, float* grad,
                              void* stream) {
-  if (warp_cull::warps(ts) * 32 > kThreads) {
+  const int blocks = warp_cull::blocks_per_tile(ts);
+  if (blocks == 0 || (nc != 3 && nc != 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (num_tiles > 0) {
-    const dim3 grid(num_tiles);
-    // whole warps (the sweep's collectives)
-    const dim3 block(warp_cull::warps(ts) * 32);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (nc == 3) {
-      composite_bwd_kernel<3><<<grid, block, 0, s>>>(
-          rec, s_total, starts, counts, ids, logt, exit_k, gchans, ts,
-          tiles_x, min_alpha, cs_floor, grad);
-    } else if (nc == 4) {
-      composite_bwd_kernel<4><<<grid, block, 0, s>>>(
-          rec, s_total, starts, counts, ids, logt, exit_k, gchans, ts,
-          tiles_x, min_alpha, cs_floor, grad);
-    } else {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (num_tiles == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      blocks == 1
+          ? launch<1>(nc, num_tiles, ts, s, rec, s_total, starts, counts,
+                      ids, logt, exit_k, gchans, tiles_x, min_alpha,
+                      cs_floor, grad)
+          : launch<warp_cull::kQuads>(nc, num_tiles, ts, s, rec, s_total,
+                                      starts, counts, ids, logt, exit_k,
+                                      gchans, tiles_x, min_alpha, cs_floor,
+                                      grad);
+  return static_cast<int>(err);
+}
+
+// cudaOccupancyMaxActiveClusters of B2's cluster instantiation for nc
+// channels (3 or 4) into *clusters; returns the CUDA error.
+extern "C" int composite_bwd_max_clusters(int nc, int* clusters) {
+  return static_cast<int>(
+      nc == 3 ? warp_cull::max_clusters(
+                    composite_bwd_kernel<3, warp_cull::kQuads>, clusters)
+              : warp_cull::max_clusters(
+                    composite_bwd_kernel<4, warp_cull::kQuads>, clusters));
 }

@@ -5,10 +5,17 @@
 // (entry composite_tiles).  The Python side, its checks and its plain
 // PyTorch version live in render/cuda_rasterize.py.
 //
-// One block per tile (tile_size <= 32) of up to 512 threads, each holding
-// 2 pixels, laid out as B2's: a warp holds an 8 x 8 patch of the tile, lane
+// One block per tile of side <= 32, of up to 512 threads, each holding 2
+// pixels, laid out as B2's: a warp holds an 8 x 8 patch of the tile, lane
 // l the pixels (l % 8, l / 8) and (l % 8, l / 8 + 4) of it
-// (warp_cull::pixel); pixels past the tile's edge are not held.  The
+// (warp_cull::pixel); pixels past the tile's edge are not held.  A tile of
+// side 33-64 is a thread-block cluster of 4 such blocks of 512 threads,
+// block r on the 32 x 32 quadrant (r % 2, r / 2) (warp_cull.cuh: the
+// layout), each staging, culling and walking every chunk for its own
+// pixels as above; the tile's exit vote is taken over the cluster
+// (warp_cull::cluster_any), so every block stops at the tile's exit_k.
+// The cluster is the template parameter Q (1 or 4), chosen by the side:
+// the Q = 1 instantiation is the tile-32 kernel.  The
 // tile's depth-sorted pair window [start, start + count) is read in the
 // same floor-aligned 128-pair chunks as the Pallas kernel: chunk k of a
 // tile covers records [(start / 128 + k) * 128, +128), and lanes outside
@@ -37,9 +44,10 @@
 //    cs_floor), the per-chunk clamp the backward replay relies on.  The
 //    tile stops once no pixel it holds has T > exit_t (__syncthreads_or
 //    after the chunk; a warp whose pixels are all done composites on until
-//    the tile stops, as the Pallas kernel does), and exit_k records how
-//    many chunks it composited, so exit_k and log T mean what they mean in
-//    the JAX package.
+//    the tile stops, as the Pallas kernel does; over a cluster, once no
+//    pixel of any of its blocks has), and exit_k records how many chunks
+//    it composited, so exit_k and log T mean what they mean in the JAX
+//    package.
 //
 // What bounds it on the H100: arithmetic, not memory (each record is read
 // once per chunk): the box tests, and exp/log1p of the visits in the box,
@@ -47,7 +55,9 @@
 // pairs.  The cull leaves the box tests of the pairs whose box reaches the
 // warp's patch (about a fifth of them at 2M splats, 1080p), one pair's
 // fields serve two pixels, the weight's running product spares an exp a
-// visit, and the whole tile stops at the exit.
+// visit, and the whole tile stops at the exit.  At sides 33-64 each of a
+// cluster's blocks reads each chunk itself (L2 serves three of the four
+// reads), and the vote adds a cluster barrier a chunk.
 //
 // Records are field-major [NC + 8, S] float32: x, y, conic a, b, c, the NC
 // channels, opacity, rx, ry.  Outputs: chans [T, NC + 1, P] (row NC is the
@@ -65,8 +75,8 @@ using gauss::kChunk;
 using warp_cull::kPix;                     // pixels a thread
 constexpr int kThreads = 32 * 32 / kPix;   // enough for a 32 x 32 tile
 
-// 2 blocks an SM, as B2 (PERF.md has ptxas's report)
-template <int NC>
+// 2 blocks an SM, as B2 (PERF.md has ptxas's report); Q blocks a tile
+template <int NC, int Q>
 __global__ void __launch_bounds__(kThreads, 2)
 composite_fwd_kernel(const float* __restrict__ rec, long long s_total,
                      const int* __restrict__ starts,
@@ -78,7 +88,8 @@ composite_fwd_kernel(const float* __restrict__ rec, long long s_total,
   constexpr int kFields = NC + 8;
   __shared__ float srec[kFields][kChunk];
 
-  const int tile = blockIdx.x;
+  int quad;
+  const int tile = warp_cull::tile_of_block<Q>(quad);
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int lane = tid & 31;
@@ -90,7 +101,8 @@ composite_fwd_kernel(const float* __restrict__ rec, long long s_total,
   const int num_chunks = (start % kChunk + count + kChunk - 1) / kChunk;
   const float tx = static_cast<float>(id % tiles_x) * static_cast<float>(ts);
   const float ty = static_cast<float>(id / tiles_x) * static_cast<float>(ts);
-  const warp_cull::Rect rect = warp_cull::rect(tx, ty, ts, warp);
+  const warp_cull::Rect rect = warp_cull::rect<Q>(tx, ty, ts, warp, quad);
+  const bool held = warp_cull::held<Q>(ts, quad, warp);
 
   bool has[kPix];
   float px[kPix], py[kPix];
@@ -99,7 +111,7 @@ composite_fwd_kernel(const float* __restrict__ rec, long long s_total,
 #pragma unroll
   for (int q = 0; q < kPix; ++q) {
     int ix, iy;
-    warp_cull::pixel(ts, warp, q, lane, ix, iy);
+    warp_cull::pixel<Q>(ts, warp, q, lane, ix, iy, quad);
     has[q] = warp_cull::inside(ts, ix, iy);
     // GL pixel centre: y up, rows flipped at assembly.
     px[q] = tx + static_cast<float>(ix) + 0.5f;
@@ -109,6 +121,8 @@ composite_fwd_kernel(const float* __restrict__ rec, long long s_total,
     t[q] = 1.0f;
     lt[q] = 0.0f;
   }
+  // every block of the cluster has started before a vote writes to it
+  warp_cull::cluster_start<Q>();
 
   int k = 0;
   while (k < num_chunks) {
@@ -123,8 +137,9 @@ composite_fwd_kernel(const float* __restrict__ rec, long long s_total,
     __syncthreads();
     const int lo = max(static_cast<int>(start - base), 0);
     const int hi = min(static_cast<int>(start + count - base), kChunk);
-    const warp_cull::Mask kept = warp_cull::cull(
+    warp_cull::Mask kept = warp_cull::cull(
         srec[0], srec[1], srec[NC + 6], srec[NC + 7], lo, hi, rect, lane);
+    if (!held) kept = {};  // a patch past the tile's edge (Q > 1 only)
 
     // chunk_log: the sum of log(1 - alpha) over the chunk's pairs so far;
     // excl: the product of 1 - alpha over them, T inside the chunk
@@ -163,7 +178,11 @@ composite_fwd_kernel(const float* __restrict__ rec, long long s_total,
     }
     ++k;
     // every thread reaches the vote; a pixel past the tile's edge has none
-    if (!__syncthreads_or(alive)) break;
+    if constexpr (Q == 1) {
+      if (!__syncthreads_or(alive)) break;
+    } else {
+      if (!warp_cull::cluster_any(alive, k)) break;
+    }
   }
 
   const long long p = static_cast<long long>(ts) * ts;
@@ -171,7 +190,7 @@ composite_fwd_kernel(const float* __restrict__ rec, long long s_total,
   for (int q = 0; q < kPix; ++q) {
     if (!has[q]) continue;
     int ix, iy;
-    warp_cull::pixel(ts, warp, q, lane, ix, iy);
+    warp_cull::pixel<Q>(ts, warp, q, lane, ix, iy, quad);
     const long long pp = iy * ts + ix;
 #pragma unroll
     for (int c = 0; c <= NC; ++c) {
@@ -180,38 +199,65 @@ composite_fwd_kernel(const float* __restrict__ rec, long long s_total,
     }
     logt[static_cast<long long>(tile) * p + pp] = lt[q];
   }
-  if (tid == 0) exit_k[tile] = k;
+  if (tid == 0 && quad == 0) exit_k[tile] = k;
+}
+
+template <int Q>
+cudaError_t launch(int nc, int num_tiles, int ts, cudaStream_t s,
+                   const float* rec, long long s_total, const int* starts,
+                   const int* counts, const int* ids, int tiles_x,
+                   float min_alpha, float cs_floor, float exit_t,
+                   float* chans, float* logt, int* exit_k) {
+  if (nc == 3) {
+    return warp_cull::launch_tiles<Q>(
+        composite_fwd_kernel<3, Q>, num_tiles, ts, s, rec, s_total, starts,
+        counts, ids, ts, tiles_x, min_alpha, cs_floor, exit_t, chans, logt,
+        exit_k);
+  }
+  if (nc == 4) {
+    return warp_cull::launch_tiles<Q>(
+        composite_fwd_kernel<4, Q>, num_tiles, ts, s, rec, s_total, starts,
+        counts, ids, ts, tiles_x, min_alpha, cs_floor, exit_t, chans, logt,
+        exit_k);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Launches B1 on `stream` over num_tiles tiles and returns
-// cudaGetLastError() (0 when the launch was accepted).
+// Launches B1 on `stream` over num_tiles tiles and returns the launch's
+// error or cudaGetLastError() (0 when the launch was accepted).  A side
+// above 64 is refused (cudaErrorInvalidValue).
 extern "C" int composite_fwd(const float* rec, long long s_total, int nc,
                              const int* starts, const int* counts,
                              const int* ids, int num_tiles, int ts,
                              int tiles_x, float min_alpha, float cs_floor,
                              float exit_t, float* chans, float* logt,
                              int* exit_k, void* stream) {
-  if (warp_cull::warps(ts) * 32 > kThreads) {
+  const int blocks = warp_cull::blocks_per_tile(ts);
+  if (blocks == 0 || (nc != 3 && nc != 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (num_tiles > 0) {
-    const dim3 grid(num_tiles);
-    // whole warps (the cull's ballots)
-    const dim3 block(warp_cull::warps(ts) * 32);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (nc == 3) {
-      composite_fwd_kernel<3><<<grid, block, 0, s>>>(
-          rec, s_total, starts, counts, ids, ts, tiles_x, min_alpha, cs_floor,
-          exit_t, chans, logt, exit_k);
-    } else if (nc == 4) {
-      composite_fwd_kernel<4><<<grid, block, 0, s>>>(
-          rec, s_total, starts, counts, ids, ts, tiles_x, min_alpha, cs_floor,
-          exit_t, chans, logt, exit_k);
-    } else {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (num_tiles == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      blocks == 1
+          ? launch<1>(nc, num_tiles, ts, s, rec, s_total, starts, counts,
+                      ids, tiles_x, min_alpha, cs_floor, exit_t, chans, logt,
+                      exit_k)
+          : launch<warp_cull::kQuads>(nc, num_tiles, ts, s, rec, s_total,
+                                      starts, counts, ids, tiles_x,
+                                      min_alpha, cs_floor, exit_t, chans,
+                                      logt, exit_k);
+  return static_cast<int>(err);
+}
+
+// cudaOccupancyMaxActiveClusters of B1's cluster instantiation for nc
+// channels (3 or 4) into *clusters; returns the CUDA error.
+extern "C" int composite_fwd_max_clusters(int nc, int* clusters) {
+  return static_cast<int>(
+      nc == 3 ? warp_cull::max_clusters(
+                    composite_fwd_kernel<3, warp_cull::kQuads>, clusters)
+              : warp_cull::max_clusters(
+                    composite_fwd_kernel<4, warp_cull::kQuads>, clusters));
 }

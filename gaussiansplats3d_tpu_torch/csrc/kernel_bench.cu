@@ -10,11 +10,16 @@
 // colours on purpose.  The variant is a template parameter, so each one
 // compiles without the pieces it removes.  Every variant runs on B1's
 // layout (csrc/composite_fwd.cu), so that their differences split today's
-// B1: one block per tile (tile_size <= 32) of warp_cull::warps(ts) * 32 <=
+// B1: one block per tile of side <= 32, of warp_cull::warps(ts) * 32 <=
 // 512 threads, each holding 2 pixels of its warp's 8 x 8 patch
 // (warp_cull::pixel; pixels past the tile's edge are not held and cast no
-// vote).  The tile's pair window [start, start + count) is read in
-// floor-aligned 128-pair chunks; for each chunk:
+// vote), and for a side of 33-64 a thread-block cluster of 4 blocks of 512
+// threads, one a 32 x 32 quadrant (warp_cull.cuh: the layout), whose vote
+// is taken over the cluster (warp_cull::cluster_any).  The cluster is the
+// template parameter Q (1 or 4), chosen by the side: the Q = 1
+// instantiation is the tile-32 kernel.  The tile's pair window [start,
+// start + count) is read in floor-aligned 128-pair chunks; for each
+// chunk:
 //
 // 1. the chunk is staged in shared memory one record field per thread
 //    (coalesced), and each warp culls it against the rectangle of its
@@ -47,7 +52,9 @@
 // per-tile launch and prologue at B1's block size).  Where a chunk has no
 // vote (exit_every4 off the multiples of 4, no_exit) a plain
 // __syncthreads() stands in for it, or the next staging would race the
-// walk.
+// walk; over a cluster, a cluster barrier, so that the blocks stay in step
+// between votes and a vote's slots are never written while a slower block
+// still reads the last vote's.
 //
 // Records are field-major [11, S] float32 (NC = 3): x, y, conic a, b, c,
 // r, g, b, opacity, rx, ry.  Outputs: colors [T, P, 3], T itself (not
@@ -86,8 +93,8 @@ enum Variant {
 };
 
 // 2 blocks an SM, as B1 ((512, 3) computed wrong results with
-// __syncthreads_or; PERF.md)
-template <int V>
+// __syncthreads_or; PERF.md); Q blocks a tile
+template <int V, int Q>
 __global__ void __launch_bounds__(kThreads, 2)
 variant_kernel(const float* __restrict__ rec, long long s_total,
                const int* __restrict__ starts,
@@ -98,7 +105,8 @@ variant_kernel(const float* __restrict__ rec, long long s_total,
                int* __restrict__ exit_k) {
   __shared__ float srec[kFields][kChunk];
 
-  const int tile = blockIdx.x;
+  int quad;
+  const int tile = warp_cull::tile_of_block<Q>(quad);
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int lane = tid & 31;
@@ -113,21 +121,22 @@ variant_kernel(const float* __restrict__ rec, long long s_total,
 #pragma unroll
     for (int q = 0; q < kPix; ++q) {
       int ix, iy;
-      warp_cull::pixel(ts, warp, q, lane, ix, iy);
+      warp_cull::pixel<Q>(ts, warp, q, lane, ix, iy, quad);
       if (!warp_cull::inside(ts, ix, iy)) continue;
       const long long out = static_cast<long long>(tile) * p + iy * ts + ix;
 #pragma unroll
       for (int c = 0; c < kNC; ++c) colors[out * kNC + c] = 0.0f;
       t_out[out] = 0.0f;
     }
-    if (tid == 0) exit_k[tile] = num_chunks;
+    if (tid == 0 && quad == 0) exit_k[tile] = num_chunks;
     return;
   }
 
   const int id = ids[tile];
   const float tx = static_cast<float>(id % tiles_x) * static_cast<float>(ts);
   const float ty = static_cast<float>(id / tiles_x) * static_cast<float>(ts);
-  const warp_cull::Rect rect = warp_cull::rect(tx, ty, ts, warp);
+  const warp_cull::Rect rect = warp_cull::rect<Q>(tx, ty, ts, warp, quad);
+  const bool held = warp_cull::held<Q>(ts, quad, warp);
 
   bool has[kPix];
   float px[kPix], py[kPix];
@@ -136,7 +145,7 @@ variant_kernel(const float* __restrict__ rec, long long s_total,
 #pragma unroll
   for (int q = 0; q < kPix; ++q) {
     int ix, iy;
-    warp_cull::pixel(ts, warp, q, lane, ix, iy);
+    warp_cull::pixel<Q>(ts, warp, q, lane, ix, iy, quad);
     has[q] = warp_cull::inside(ts, ix, iy);
     // GL pixel centre: y up, rows flipped at assembly.
     px[q] = tx + static_cast<float>(ix) + 0.5f;
@@ -145,6 +154,8 @@ variant_kernel(const float* __restrict__ rec, long long s_total,
     for (int c = 0; c < kNC; ++c) col[q][c] = 0.0f;
     t[q] = 1.0f;
   }
+  // every block of the cluster has started before a vote writes to it
+  warp_cull::cluster_start<Q>();
 
   int k = 0;
   while (k < num_chunks) {
@@ -173,8 +184,9 @@ variant_kernel(const float* __restrict__ rec, long long s_total,
     } else {
       const int lo = max(static_cast<int>(start - base), 0);
       const int hi = min(static_cast<int>(start + count - base), kChunk);
-      const warp_cull::Mask kept = warp_cull::cull(
+      warp_cull::Mask kept = warp_cull::cull(
           srec[0], srec[1], srec[kNC + 6], srec[kNC + 7], lo, hi, rect, lane);
+      if (!held) kept = {};  // a patch past the tile's edge (Q > 1 only)
 
       // the product of 1 - alpha over the chunk's earlier pairs, or for
       // log_scan its log
@@ -227,11 +239,18 @@ variant_kernel(const float* __restrict__ rec, long long s_total,
       }
     }
     // The vote, block-uniform (every thread has the same k): a pixel past
-    // the tile's edge has none.  Without it, a plain barrier.
+    // the tile's edge has none.  Without it, a plain barrier (over a
+    // cluster, a cluster barrier).
     if (V == kNoExit || (V == kExitEvery4 && k % 4 != 0)) {
-      __syncthreads();
-    } else if (!__syncthreads_or(alive)) {
-      break;
+      if constexpr (Q == 1) {
+        __syncthreads();
+      } else {
+        warp_cull::cg::this_cluster().sync();
+      }
+    } else if constexpr (Q == 1) {
+      if (!__syncthreads_or(alive)) break;
+    } else {
+      if (!warp_cull::cluster_any(alive, k)) break;
     }
   }
 
@@ -239,31 +258,46 @@ variant_kernel(const float* __restrict__ rec, long long s_total,
   for (int q = 0; q < kPix; ++q) {
     if (!has[q]) continue;
     int ix, iy;
-    warp_cull::pixel(ts, warp, q, lane, ix, iy);
+    warp_cull::pixel<Q>(ts, warp, q, lane, ix, iy, quad);
     const long long out = static_cast<long long>(tile) * p + iy * ts + ix;
 #pragma unroll
     for (int c = 0; c < kNC; ++c) colors[out * kNC + c] = col[q][c];
     t_out[out] = t[q];
   }
-  if (tid == 0) exit_k[tile] = k;
+  if (tid == 0 && quad == 0) exit_k[tile] = k;
 }
 
-template <int V>
-void launch(const dim3& grid, const dim3& block, cudaStream_t s,
-            const float* rec, long long s_total, const int* starts,
-            const int* counts, const int* ids, int ts, int tiles_x,
-            float min_alpha, float t_floor, float exit_t, float* colors,
-            float* t_out, int* exit_k) {
-  variant_kernel<V><<<grid, block, 0, s>>>(
-      rec, s_total, starts, counts, ids, ts, tiles_x, min_alpha, t_floor,
-      exit_t, colors, t_out, exit_k);
+template <int Q>
+cudaError_t launch(int variant, int num_tiles, int ts, cudaStream_t s,
+                   const float* rec, long long s_total, const int* starts,
+                   const int* counts, const int* ids, int tiles_x,
+                   float min_alpha, float t_floor, float exit_t,
+                   float* colors, float* t_out, int* exit_k) {
+#define B5_LAUNCH(V)                                                        \
+  return warp_cull::launch_tiles<Q>(variant_kernel<V, Q>, num_tiles, ts, s, \
+                                    rec, s_total, starts, counts, ids, ts,  \
+                                    tiles_x, min_alpha, t_floor, exit_t,    \
+                                    colors, t_out, exit_k)
+  switch (variant) {
+    case kFull: B5_LAUNCH(kFull);
+    case kLogScan: B5_LAUNCH(kLogScan);
+    case kExitEvery4: B5_LAUNCH(kExitEvery4);
+    case kNoExit: B5_LAUNCH(kNoExit);
+    case kNoScan: B5_LAUNCH(kNoScan);
+    case kNoMatmul: B5_LAUNCH(kNoMatmul);
+    case kDmaOnly: B5_LAUNCH(kDmaOnly);
+    case kGridOnly: B5_LAUNCH(kGridOnly);
+    default: return cudaErrorInvalidValue;
+  }
+#undef B5_LAUNCH
 }
 
 }  // namespace
 
 // Launches variant `variant` (the Variant enum) of B5 on `stream` over
-// num_tiles tiles and returns cudaGetLastError() (0 when the launch was
-// accepted).
+// num_tiles tiles and returns the launch's error or cudaGetLastError() (0
+// when the launch was accepted).  A side above 64 is refused
+// (cudaErrorInvalidValue).
 extern "C" int kernel_bench_variant(int variant, const float* rec,
                                     long long s_total, const int* starts,
                                     const int* counts, const int* ids,
@@ -271,29 +305,29 @@ extern "C" int kernel_bench_variant(int variant, const float* rec,
                                     float min_alpha, float t_floor,
                                     float exit_t, float* colors, float* t_out,
                                     int* exit_k, void* stream) {
-  if (warp_cull::warps(ts) * 32 > kThreads) {
+  const int blocks = warp_cull::blocks_per_tile(ts);
+  if (blocks == 0 || variant < kFull || variant > kGridOnly) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (num_tiles > 0) {
-    const dim3 grid(num_tiles);
-    // whole warps (the cull's ballots)
-    const dim3 block(warp_cull::warps(ts) * 32);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define B5_LAUNCH(V)                                                       \
-  launch<V>(grid, block, s, rec, s_total, starts, counts, ids, ts, tiles_x, \
-            min_alpha, t_floor, exit_t, colors, t_out, exit_k)
-    switch (variant) {
-      case kFull: B5_LAUNCH(kFull); break;
-      case kLogScan: B5_LAUNCH(kLogScan); break;
-      case kExitEvery4: B5_LAUNCH(kExitEvery4); break;
-      case kNoExit: B5_LAUNCH(kNoExit); break;
-      case kNoScan: B5_LAUNCH(kNoScan); break;
-      case kNoMatmul: B5_LAUNCH(kNoMatmul); break;
-      case kDmaOnly: B5_LAUNCH(kDmaOnly); break;
-      case kGridOnly: B5_LAUNCH(kGridOnly); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-#undef B5_LAUNCH
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (num_tiles == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      blocks == 1
+          ? launch<1>(variant, num_tiles, ts, s, rec, s_total, starts,
+                      counts, ids, tiles_x, min_alpha, t_floor, exit_t,
+                      colors, t_out, exit_k)
+          : launch<warp_cull::kQuads>(variant, num_tiles, ts, s, rec,
+                                      s_total, starts, counts, ids, tiles_x,
+                                      min_alpha, t_floor, exit_t, colors,
+                                      t_out, exit_k);
+  return static_cast<int>(err);
+}
+
+// cudaOccupancyMaxActiveClusters of B5's cluster instantiation of `full`
+// (variant must be 0: the variants share the layout) into *clusters;
+// returns the CUDA error.
+extern "C" int kernel_bench_max_clusters(int variant, int* clusters) {
+  if (variant != kFull) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(warp_cull::max_clusters(
+      variant_kernel<kFull, warp_cull::kQuads>, clusters));
 }

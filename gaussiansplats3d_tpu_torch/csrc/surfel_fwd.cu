@@ -7,9 +7,14 @@
 //
 // B1 (composite_fwd.cu) with the 2DGS ray-plane fragment
 // (surfel_fragment.cuh) in place of the Gaussian one, in B1's layout: one
-// block per tile (tile_size <= 32) of up to 512 threads, each holding 2
+// block per tile of side <= 32, of up to 512 threads, each holding 2
 // pixels, a warp on an 8 x 8 patch of the tile (warp_cull::pixel), pixels
-// past the tile's edge masked, so B3 and B4 hold the same pixels.  The
+// past the tile's edge masked, so B3 and B4 hold the same pixels; a tile
+// of side 33-64 is a thread-block cluster of 4 blocks of 512 threads, one
+// a 32 x 32 quadrant (warp_cull.cuh: the layout), whose exit vote is taken
+// over the cluster (warp_cull::cluster_any).  The cluster is the template
+// parameter Q (1 or 4), chosen by the side: the Q = 1 instantiation is the
+// tile-32 kernel.  The
 // tile's depth-sorted window [start, start + count) is read in the Pallas
 // kernel's floor-aligned 128-pair chunks: chunk k covers records
 // [(start / 128 + k) * 128, +128), lanes outside the window are skipped.
@@ -52,8 +57,8 @@ using surfel::kChunk;
 using warp_cull::kPix;                     // pixels a thread
 constexpr int kThreads = 32 * 32 / kPix;   // enough for a 32 x 32 tile
 
-// 2 blocks an SM, as B4 (PERF.md has ptxas's report)
-template <int NC>
+// 2 blocks an SM, as B4 (PERF.md has ptxas's report); Q blocks a tile
+template <int NC, int Q>
 __global__ void __launch_bounds__(kThreads, 2)
 surfel_fwd_kernel(const float* __restrict__ rec, long long s_total,
                   const int* __restrict__ starts,
@@ -65,7 +70,8 @@ surfel_fwd_kernel(const float* __restrict__ rec, long long s_total,
   constexpr int kFields = NC + 14;
   __shared__ float srec[kFields][kChunk];
 
-  const int tile = blockIdx.x;
+  int quad;
+  const int tile = warp_cull::tile_of_block<Q>(quad);
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int lane = tid & 31;
@@ -77,7 +83,8 @@ surfel_fwd_kernel(const float* __restrict__ rec, long long s_total,
   const int num_chunks = (start % kChunk + count + kChunk - 1) / kChunk;
   const float x0 = static_cast<float>(id % tiles_x) * static_cast<float>(ts);
   const float y0 = static_cast<float>(id / tiles_x) * static_cast<float>(ts);
-  const warp_cull::Rect rect = warp_cull::rect(x0, y0, ts, warp);
+  const warp_cull::Rect rect = warp_cull::rect<Q>(x0, y0, ts, warp, quad);
+  const bool held = warp_cull::held<Q>(ts, quad, warp);
 
   bool has[kPix];
   float px[kPix], py[kPix];
@@ -86,7 +93,7 @@ surfel_fwd_kernel(const float* __restrict__ rec, long long s_total,
 #pragma unroll
   for (int q = 0; q < kPix; ++q) {
     int ix, iy;
-    warp_cull::pixel(ts, warp, q, lane, ix, iy);
+    warp_cull::pixel<Q>(ts, warp, q, lane, ix, iy, quad);
     has[q] = warp_cull::inside(ts, ix, iy);
     // GL pixel centre: y up, rows flipped at assembly.
     px[q] = x0 + static_cast<float>(ix) + 0.5f;
@@ -96,6 +103,8 @@ surfel_fwd_kernel(const float* __restrict__ rec, long long s_total,
     t[q] = 1.0f;
     lt[q] = 0.0f;
   }
+  // every block of the cluster has started before a vote writes to it
+  warp_cull::cluster_start<Q>();
 
   int k = 0;
   while (k < num_chunks) {
@@ -110,8 +119,9 @@ surfel_fwd_kernel(const float* __restrict__ rec, long long s_total,
     __syncthreads();
     const int lo = max(static_cast<int>(start - base), 0);
     const int hi = min(static_cast<int>(start + count - base), kChunk);
-    const warp_cull::Mask kept = warp_cull::cull(
+    warp_cull::Mask kept = warp_cull::cull(
         srec[9], srec[10], srec[12 + NC], srec[13 + NC], lo, hi, rect, lane);
+    if (!held) kept = {};  // a patch past the tile's edge (Q > 1 only)
 
     // chunk_log: the sum of log(1 - alpha) over the chunk's pairs so far;
     // excl: the product of 1 - alpha over them, T inside the chunk
@@ -149,7 +159,11 @@ surfel_fwd_kernel(const float* __restrict__ rec, long long s_total,
     }
     ++k;
     // every thread reaches the vote; a pixel past the tile's edge has none
-    if (!__syncthreads_or(alive)) break;
+    if constexpr (Q == 1) {
+      if (!__syncthreads_or(alive)) break;
+    } else {
+      if (!warp_cull::cluster_any(alive, k)) break;
+    }
   }
 
   const long long p = static_cast<long long>(ts) * ts;
@@ -157,44 +171,71 @@ surfel_fwd_kernel(const float* __restrict__ rec, long long s_total,
   for (int q = 0; q < kPix; ++q) {
     if (!has[q]) continue;
     int ix, iy;
-    warp_cull::pixel(ts, warp, q, lane, ix, iy);
+    warp_cull::pixel<Q>(ts, warp, q, lane, ix, iy, quad);
     const long long at = static_cast<long long>(tile) * p + iy * ts + ix;
 #pragma unroll
     for (int c = 0; c < NC; ++c) colors[at * NC + c] = acc[q][c];
     logt[at] = lt[q];
   }
-  if (tid == 0) exit_k[tile] = k;
+  if (tid == 0 && quad == 0) exit_k[tile] = k;
+}
+
+template <int Q>
+cudaError_t launch(int nc, int num_tiles, int ts, cudaStream_t s,
+                   const float* rec, long long s_total, const int* starts,
+                   const int* counts, const int* ids, int tiles_x,
+                   float min_alpha, float cs_floor, float exit_t,
+                   float* colors, float* logt, int* exit_k) {
+  if (nc == 3) {
+    return warp_cull::launch_tiles<Q>(
+        surfel_fwd_kernel<3, Q>, num_tiles, ts, s, rec, s_total, starts,
+        counts, ids, ts, tiles_x, min_alpha, cs_floor, exit_t, colors, logt,
+        exit_k);
+  }
+  if (nc == 4) {
+    return warp_cull::launch_tiles<Q>(
+        surfel_fwd_kernel<4, Q>, num_tiles, ts, s, rec, s_total, starts,
+        counts, ids, ts, tiles_x, min_alpha, cs_floor, exit_t, colors, logt,
+        exit_k);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Launches B3 on `stream` over num_tiles tiles and returns
-// cudaGetLastError() (0 when the launch was accepted).
+// Launches B3 on `stream` over num_tiles tiles and returns the launch's
+// error or cudaGetLastError() (0 when the launch was accepted).  A side
+// above 64 is refused (cudaErrorInvalidValue).
 extern "C" int surfel_fwd(const float* rec, long long s_total, int nc,
                           const int* starts, const int* counts,
                           const int* ids, int num_tiles, int ts, int tiles_x,
                           float min_alpha, float cs_floor, float exit_t,
                           float* colors, float* logt, int* exit_k,
                           void* stream) {
-  if (warp_cull::warps(ts) * 32 > kThreads) {
+  const int blocks = warp_cull::blocks_per_tile(ts);
+  if (blocks == 0 || (nc != 3 && nc != 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (num_tiles > 0) {
-    const dim3 grid(num_tiles);
-    // whole warps (the cull's ballots)
-    const dim3 block(warp_cull::warps(ts) * 32);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (nc == 3) {
-      surfel_fwd_kernel<3><<<grid, block, 0, s>>>(
-          rec, s_total, starts, counts, ids, ts, tiles_x, min_alpha, cs_floor,
-          exit_t, colors, logt, exit_k);
-    } else if (nc == 4) {
-      surfel_fwd_kernel<4><<<grid, block, 0, s>>>(
-          rec, s_total, starts, counts, ids, ts, tiles_x, min_alpha, cs_floor,
-          exit_t, colors, logt, exit_k);
-    } else {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (num_tiles == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      blocks == 1
+          ? launch<1>(nc, num_tiles, ts, s, rec, s_total, starts, counts,
+                      ids, tiles_x, min_alpha, cs_floor, exit_t, colors,
+                      logt, exit_k)
+          : launch<warp_cull::kQuads>(nc, num_tiles, ts, s, rec, s_total,
+                                      starts, counts, ids, tiles_x,
+                                      min_alpha, cs_floor, exit_t, colors,
+                                      logt, exit_k);
+  return static_cast<int>(err);
+}
+
+// cudaOccupancyMaxActiveClusters of B3's cluster instantiation for nc
+// channels (3 or 4) into *clusters; returns the CUDA error.
+extern "C" int surfel_fwd_max_clusters(int nc, int* clusters) {
+  return static_cast<int>(
+      nc == 3 ? warp_cull::max_clusters(
+                    surfel_fwd_kernel<3, warp_cull::kQuads>, clusters)
+              : warp_cull::max_clusters(
+                    surfel_fwd_kernel<4, warp_cull::kQuads>, clusters));
 }

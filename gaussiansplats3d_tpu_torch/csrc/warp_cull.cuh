@@ -1,7 +1,33 @@
 // Per-warp pair cull and pixel layout, shared by the compositors B1-B4 of
 // the port (composite_fwd.cu, composite_bwd.cu, surfel_fwd.cu,
-// surfel_bwd.cu) and the ablation bench B5 (kernel_bench.cu), and the
-// per-pair warp reduction of the backward ones (B2, B4).
+// surfel_bwd.cu) and the ablation bench B5 (kernel_bench.cu), the
+// per-pair warp reduction of the backward ones (B2, B4), and the cluster
+// of four blocks that holds a tile of side 33-64.
+//
+// The layout.  A tile of side ts <= 32 is one block of warps(ts) warps
+// (Q = 1).  A tile of side 33..64 (kMaxTile) is a thread-block cluster of
+// kQuads = 4 blocks (Q = 4): block r of the cluster (cluster.block_rank())
+// holds the 32 x 32 quadrant (r % 2, r / 2), columns [32 (r % 2),
+// min(32 (r % 2) + 32, ts)) and rows [32 (r / 2), min(32 (r / 2) + 32,
+// ts)), as a tile-32 block holds its tile: 16 warps, each on an 8 x 8
+// patch.  The quadrants start at multiples of 32, so
+// their patches inside the tile are those of an 8 x 8 patching of the
+// whole tile (the mirror's warp_rects).  A launch has one block size, so a
+// narrow quadrant (8 wide at side 40) keeps its 16 warps: a warp whose
+// patch lies wholly past the tile's edge holds no pixel and keeps an empty
+// mask (held()), but it stages and reaches every barrier.  Pixels keep the
+// whole tile's coordinates, p = iy * ts + ix.  A side above 64 would need 9
+// blocks or more, past the portable cluster size of 8: the entries refuse
+// it (blocks_per_tile() == 0).
+//
+// The cluster.  The forward kernels (B1, B3, B5) stop a tile once no pixel
+// of any of its blocks is alive: each block takes __syncthreads_or, writes
+// the flag into a slot of every block's shared memory (distributed shared
+// memory, DSMEM), and after cluster.sync() every block reads the four
+// flags (cluster_any).  The backward ones (B2, B4) add the four blocks'
+// per-chunk sums: block r sums lanes [32 r, 32 r + 32) of every block's
+// sacc through DSMEM and writes those slots (cluster_write), so each slot
+// is still written once.
 //
 // The cull.  A warp holds an 8 x 8 patch of its tile (pixel()), whose
 // pixel centres lie in a rectangle (Rect).  Once a 128-pair chunk is
@@ -28,9 +54,12 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace warp_cull {
+
+namespace cg = cooperative_groups;
 
 constexpr int kChunk = 128;
 constexpr int kWords = kChunk / 32;
@@ -57,30 +86,83 @@ constexpr int kPatch = 8;
 constexpr int kPatchRowsPerQ = 32 / kPatch;  // rows of one pixel a lane
 static_assert(kPatchRowsPerQ * kPix == kPatch, "square patches");
 
+// A cluster's quadrants: the side of each, how many, the largest tile.
+constexpr int kQuadSide = 32;
+constexpr int kQuads = 4;
+constexpr int kMaxTile = 2 * kQuadSide;
+
 // warps that cover a ts x ts tile
 __host__ __device__ inline int warps(int ts) {
   const int across = (ts + kPatch - 1) / kPatch;
   return across * across;
 }
 
-// column and row in the tile of pixel q of `lane` in warp `warp`
+// Blocks that hold a tile of side ts: 1 up to 32, kQuads up to kMaxTile,
+// 0 above (refused).
+__host__ __device__ inline int blocks_per_tile(int ts) {
+  return ts <= kQuadSide ? 1 : ts <= kMaxTile ? kQuads : 0;
+}
+
+// Threads of a block of a tile of side ts (whole warps: the cull's
+// ballots and the sweep's collectives).
+__host__ __device__ inline int threads(int ts) {
+  return warps(ts <= kQuadSide ? ts : kQuadSide) * 32;
+}
+
+// Column c0 and row r0 in the tile of warp `warp`'s patch corner.  Q = 1:
+// the block holds the whole tile, ceil(ts / 8)^2 patches row-major; Q =
+// kQuads: block `quad` of the cluster holds its quadrant, 4 x 4 patches
+// row-major from the quadrant's corner.
+template <int Q>
+__device__ __forceinline__ void patch(int ts, int quad, int warp, int& c0,
+                                      int& r0) {
+  if constexpr (Q == 1) {
+    const int across = (ts + kPatch - 1) / kPatch;
+    c0 = warp % across * kPatch;
+    r0 = warp / across * kPatch;
+  } else {
+    constexpr int across = kQuadSide / kPatch;
+    c0 = quad % 2 * kQuadSide + warp % across * kPatch;
+    r0 = quad / 2 * kQuadSide + warp / across * kPatch;
+  }
+}
+
+// column and row in the tile of pixel q of `lane` in warp `warp` (of
+// cluster block `quad` where Q = kQuads)
+template <int Q = 1>
 __device__ __forceinline__ void pixel(int ts, int warp, int q, int lane,
-                                      int& ix, int& iy) {
-  const int across = (ts + kPatch - 1) / kPatch;
-  ix = warp % across * kPatch + lane % kPatch;
-  iy = warp / across * kPatch + q * kPatchRowsPerQ + lane / kPatch;
+                                      int& ix, int& iy, int quad = 0) {
+  int c0, r0;
+  patch<Q>(ts, quad, warp, c0, r0);
+  ix = c0 + lane % kPatch;
+  iy = r0 + q * kPatchRowsPerQ + lane / kPatch;
 }
 
 __device__ __forceinline__ bool inside(int ts, int ix, int iy) {
   return ix < ts && iy < ts;
 }
 
+// Whether warp `warp`'s patch holds a pixel of the tile: always with Q =
+// 1; with Q = kQuads not where the patch lies wholly past the tile's edge
+// (a narrow quadrant).  Such a warp must keep an empty mask.
+template <int Q>
+__device__ __forceinline__ bool held(int ts, int quad, int warp) {
+  if constexpr (Q == 1) {
+    return true;
+  } else {
+    int c0, r0;
+    patch<Q>(ts, quad, warp, c0, r0);
+    return c0 < ts && r0 < ts;
+  }
+}
+
 // the rectangle of the pixel centres of warp `warp`'s patch, clipped to
 // the tile, in a tile whose corner is at (tx, ty)
-__device__ __forceinline__ Rect rect(float tx, float ty, int ts, int warp) {
-  const int across = (ts + kPatch - 1) / kPatch;
-  const int c0 = warp % across * kPatch;
-  const int r0 = warp / across * kPatch;
+template <int Q = 1>
+__device__ __forceinline__ Rect rect(float tx, float ty, int ts, int warp,
+                                     int quad = 0) {
+  int c0, r0;
+  patch<Q>(ts, quad, warp, c0, r0);
   const int c1 = min(c0 + kPatch, ts) - 1;
   const int r1 = min(r0 + kPatch, ts) - 1;
   return {tx + static_cast<float>(c0) + 0.5f,
@@ -209,6 +291,132 @@ __device__ __forceinline__ void reduce_add(const float (&v)[N], int lane,
                                            int term, float* acc, int l) {
   const float s = reduce_level<N, 16>(v, lane);
   if (term >= 0 && s != 0.0f) atomicAdd(&acc[term * kAccStride + l], s);
+}
+
+// The tile and, with Q = kQuads, the block's quadrant (its rank in the
+// cluster); a cluster's kQuads blocks are consecutive in x.
+template <int Q>
+__device__ __forceinline__ int tile_of_block(int& quad) {
+  if constexpr (Q == 1) {
+    quad = 0;
+    return blockIdx.x;
+  } else {
+    quad = static_cast<int>(cg::this_cluster().block_rank());
+    return blockIdx.x / Q;
+  }
+}
+
+// With Q = kQuads, a cluster barrier before a block's first write into a
+// peer's shared memory: every block of the cluster has then started.
+template <int Q>
+__device__ __forceinline__ void cluster_start() {
+  if constexpr (Q > 1) cg::this_cluster().sync();
+}
+
+// The forward kernels' exit vote over a cluster, after chunk k (k counts
+// from 1): whether any pixel of any of the kQuads blocks is alive.  Every
+// thread of every block must call it, with the same k.  Each block takes
+// __syncthreads_or; threads 0..kQuads-1 write its flag into its slot of
+// every block's votes (DSMEM); after cluster.sync() (which orders those
+// writes before the reads) every block reads the four flags from its own
+// shared memory.  The slots are double-buffered by k & 1: the next vote's
+// writes go to the other buffer, and the one after can write this buffer
+// only once every block has passed the next vote's barrier, after its
+// reads.  The kernel must have called cluster.sync() once before the first
+// vote (cluster_start), so that no write reaches a block that has not
+// started.
+__device__ __forceinline__ bool cluster_any(bool alive, int k) {
+  __shared__ int votes[2][kQuads];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int mine = __syncthreads_or(alive);
+  const int buf = k & 1;
+  if (threadIdx.x < kQuads) {
+    *cluster.map_shared_rank(&votes[buf][cluster.block_rank()],
+                             threadIdx.x) = mine;
+  }
+  cluster.sync();
+  return (votes[buf][0] | votes[buf][1] | votes[buf][2] | votes[buf][3]) != 0;
+}
+
+// The backward kernels' write of one chunk's sums over a cluster: every
+// block's sacc [NT][kAccStride] holds its quadrant's sums of the chunk's
+// lanes; block r adds lanes [32 r, 32 r + 32) of the kQuads blocks' sacc,
+// in rank order, through DSMEM, and writes those of the window [lo, hi) to
+// grad [NT, s_total] at slot base + lane.  Every thread of every block
+// must call it.  cluster.sync() before (every block's sums are complete)
+// and after (no block clears or refills its sacc, or exits, while a peer
+// reads it).
+template <int NT>
+__device__ __forceinline__ void cluster_write(const float* sacc,
+                                              float* __restrict__ grad,
+                                              long long s_total,
+                                              long long base, int lo,
+                                              int hi) {
+  constexpr int kLanes = kChunk / kQuads;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int r = static_cast<int>(cluster.block_rank());
+  for (int i = threadIdx.x; i < NT * kLanes; i += blockDim.x) {
+    const int f = i / kLanes;
+    const int l = r * kLanes + i % kLanes;
+    if (l < lo || l >= hi) continue;
+    float sum = 0.0f;
+#pragma unroll
+    for (int b = 0; b < kQuads; ++b) {
+      sum += cluster.map_shared_rank(sacc, b)[f * kAccStride + l];
+    }
+    grad[f * s_total + base + l] = sum;
+  }
+  cluster.sync();
+}
+
+// Launches `kernel` over num_tiles tiles of side ts on stream s: with Q =
+// 1 one block a tile, as <<<>>> with no cluster attribute; with Q = kQuads
+// kQuads blocks a tile, a cluster each (cudaLaunchKernelEx with
+// cudaLaunchAttributeClusterDimension).  Returns the launch's error, else
+// cudaGetLastError().
+template <int Q, typename... Params, typename... Args>
+cudaError_t launch_tiles(void (*kernel)(Params...), int num_tiles, int ts,
+                         cudaStream_t s, Args... args) {
+  if constexpr (Q == 1) {
+    kernel<<<dim3(num_tiles), dim3(threads(ts)), 0, s>>>(args...);
+    return cudaGetLastError();
+  } else {
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(num_tiles * Q);
+    config.blockDim = dim3(threads(ts));
+    config.dynamicSmemBytes = 0;
+    config.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = Q;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&config, kernel, args...);
+    const cudaError_t last = cudaGetLastError();
+    return err != cudaSuccess ? err : last;
+  }
+}
+
+// cudaOccupancyMaxActiveClusters of the kQuads-block instantiation
+// `kernel` at 512 threads a block: how many of its clusters the card holds
+// at once (0 if none fits).
+template <typename... Params>
+cudaError_t max_clusters(void (*kernel)(Params...), int* clusters) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(kQuads);
+  config.blockDim = dim3(threads(kMaxTile));
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kQuads;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(
+      clusters, reinterpret_cast<const void*>(kernel), &config);
 }
 
 }  // namespace warp_cull

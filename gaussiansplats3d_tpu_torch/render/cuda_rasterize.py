@@ -3,19 +3,21 @@ and B2, their plain PyTorch versions, and the launch counters (counterpart
 of the JAX package's ``render/pallas_rasterize.py``).
 
 **B1 replaces** ``gaussiansplats3d_tpu/render/pallas_rasterize.py::
-_composite_fwd`` (the Pallas kernel behind ``composite_tiles``).  The kernel
-source is ``csrc/composite_fwd.cu``; it computes what the Pallas kernel
-computes without its TPU mechanics (no DMA semaphores, no bf16-limb MXU
-scan, no tiles per step): one block per tile of up to 512 threads, each
-holding 2 pixels, a warp on an 8 x 8 patch of the tile
-(:data:`WARP_PATCH`); the tile's records are staged 128 pairs at a time in
-shared memory, each warp culls the chunk against the rectangle of its
-pixels (``csrc/warp_cull.cuh``; :func:`warp_keep` is its plain mirror) and
-walks the kept pairs in order, blending both pixels of a lane front to
-back in float32.  It keeps the Pallas kernel's floor-aligned 128-pair
-chunk windows, its per-chunk ``_CS_FLOOR`` clamp on log T and its ``max T
-<= 1e-4`` tile exit, so ``logt`` and ``exit_k`` are the residuals B2
-replays from.
+_composite_fwd`` (the Pallas kernel behind ``composite_tiles``).  The
+kernel source is ``csrc/composite_fwd.cu``; it computes what the Pallas
+kernel computes without its TPU mechanics (no DMA semaphores, no bf16-limb
+MXU scan, no tiles per step): one block per tile of up to 512 threads,
+each holding 2 pixels, a warp on an 8 x 8 patch of the tile
+(:data:`WARP_PATCH`), for sides up to 32; a tile of side 33-64 is a
+thread-block cluster of 4 such blocks, one a 32 x 32 quadrant, that vote
+on the tile's exit through distributed shared memory.  The tile's records
+are staged 128 pairs at a time in shared memory, each warp culls the chunk
+against the rectangle of its pixels (``csrc/warp_cull.cuh``;
+:func:`warp_keep` is its plain mirror) and walks the kept pairs in order,
+blending both pixels of a lane front to back in float32.  It keeps the
+Pallas kernel's floor-aligned 128-pair chunk windows, its per-chunk
+``_CS_FLOOR`` clamp on log T and its ``max T <= 1e-4`` tile exit, so
+``logt`` and ``exit_k`` are the residuals B2 replays from.
 
 **B2 replaces** ``pallas_rasterize.py::_composite_bwd`` (kernel
 ``_bwd_one_tile``).  Source ``csrc/composite_bwd.cu``: B1's block and
@@ -25,9 +27,11 @@ sweeps its kept pairs backwards with T taken from B1's residual log T
 died in the chunk: both kernels evaluate alpha with
 ``csrc/gauss_fragment.cuh``, written with round-to-nearest intrinsics that
 nvcc cannot contract); each pair's gradient terms are summed over the warp
-by one reduce-scatter and over the tile in shared memory, and written once
-to the pair's slot (a slot lies in one tile's window only, so no global
-atomics and no read-modify-write of shared boundary chunks).
+by one reduce-scatter and over the block in shared memory (over a tile's
+cluster of 4 blocks through distributed shared memory, each block summing
+32 of the chunk's lanes), and written once to the pair's slot (a slot lies
+in one tile's window only, so no global atomics and no read-modify-write
+of shared boundary chunks).
 
 **What bounds them on the H100.**  Each record is read once per tile that
 holds it (44-48 bytes a pair), while each pair may be evaluated at every
@@ -36,7 +40,11 @@ arithmetic, not memory, bounds both.  Both walk only the pairs whose box
 reaches a warp's patch, read a pair's fields once for a lane's 2 pixels,
 and test the cheap support box before the ``exp``; B2 skips the replay of
 B1's sum where it can and reduces a pair's terms in one pass.  Any tile
-size up to 32 runs: pixels past the tile's edge are masked.
+side up to :data:`MAX_CUDA_TILE` (64) runs: pixels past the tile's edge
+are masked, and a warp whose patch lies wholly past it holds none and
+culls every pair.  A side above 64 would need a cluster of 9 or more
+blocks, past the portable cluster size of 8, and the CUDA wrappers refuse
+it (:func:`check_cuda_launch`); the plain versions take any side.
 
 **Plain versions** (:func:`composite_fwd_torch`,
 :func:`composite_bwd_torch`): the same functions in PyTorch, groups of
@@ -71,6 +79,10 @@ _GROUP_SIZE = 64
 # The side of the square patch of pixels each warp of B1-B4 holds
 # (csrc/warp_cull.cuh: kPatch); see warp_rects.
 WARP_PATCH = 8
+# The largest tile side B1-B5 take (csrc/warp_cull.cuh: kMaxTile): a side
+# of 33-64 is a cluster of 4 blocks of 32 x 32 pixels; a side above 64
+# needs 9 blocks or more, past the portable cluster size of 8.
+MAX_CUDA_TILE = 64
 
 launches = 0
 """Launches of the CUDA kernel B1 made by :func:`composite_fwd` (the plain
@@ -109,11 +121,22 @@ def _check_inputs(records, starts, counts, ids, cfg: RenderConfig,
             raise ValueError(f"{name} must be contiguous")
     if not records.is_contiguous():
         raise ValueError("records must be contiguous")
-    if cfg.tile_size > 32:
-        raise ValueError("tile_size must be <= 32 (16 warps of 8 x 8 "
-                         "pixels)")
     if s >= 2 ** 31:
         raise ValueError("records capacity must stay below 2^31")
+
+
+def check_cuda_launch(records, cfg: RenderConfig, name: str):
+    """Raise unless a CUDA compositor (B1-B5) can launch on these inputs:
+    the tile side at most :data:`MAX_CUDA_TILE`, the records on a CUDA
+    device."""
+    if cfg.tile_size > MAX_CUDA_TILE:
+        raise ValueError(
+            f"{name}: tile_size {cfg.tile_size} > {MAX_CUDA_TILE}: the CUDA "
+            f"compositors hold a tile of side 33-{MAX_CUDA_TILE} as a cluster"
+            f" of 4 blocks of 32 x 32 pixels, and a larger side needs 9 "
+            f"blocks or more, past the portable cluster size of 8")
+    if not records.is_cuda:
+        raise ValueError(f"{name} needs CUDA tensors")
 
 
 @functools.cache
@@ -147,8 +170,7 @@ def composite_fwd_cuda(records, tile_starts, tile_counts, tile_ids,
     all on one CUDA device; returns (chans, logt, exit_k)."""
     global launches
     _check_inputs(records, tile_starts, tile_counts, tile_ids, cfg)
-    if not records.is_cuda:
-        raise ValueError("composite_fwd_cuda needs CUDA tensors")
+    check_cuda_launch(records, cfg, "composite_fwd_cuda")
     fn = _kernel()
     nf, s = records.shape
     nc = nf - 8
@@ -199,7 +221,11 @@ def warp_rects(cfg: RenderConfig):
     holds (``csrc/warp_cull.cuh``'s ``rect``), as offsets from the tile's
     corner: ``[W, 4]`` float32 (x0, x1, y0, y1), one row per warp.  The
     warps tile the tile with :data:`WARP_PATCH`-square patches, row-major,
-    clipped to it."""
+    clipped to it.  At sides 33-64 the kernels hold the tile as four 32 x
+    32 quadrants, each patched from its corner; the quadrants start at
+    multiples of 32, so their patches inside the tile are these same
+    rectangles (the order differs, the set does not), and a patch wholly
+    past the tile's edge holds no pixel and keeps no pair."""
     ts = cfg.tile_size
     across = -(-ts // WARP_PATCH)
     w = torch.arange(across * across)
@@ -420,8 +446,7 @@ def composite_bwd_cuda(records, tile_starts, tile_counts, tile_ids, logt,
     global bwd_launches
     _check_bwd_inputs(records, tile_starts, tile_counts, tile_ids, logt,
                       exit_k, gchans, cfg)
-    if not records.is_cuda:
-        raise ValueError("composite_bwd_cuda needs CUDA tensors")
+    check_cuda_launch(records, cfg, "composite_bwd_cuda")
     fn = _bwd_kernel()
     nf, s = records.shape
     t = tile_starts.shape[0]

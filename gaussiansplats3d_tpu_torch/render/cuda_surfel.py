@@ -15,22 +15,27 @@ and B2 with the 2DGS fragment in place of the Gaussian one:
             depth s . Tw.xy + Tw.z (Tw.z when the 2D term wins) < 0.2,
             alpha < min_alpha, or the pixel lies outside the rx/ry box
 
-B3, in B1's layout: one block per tile of up to 512 threads, each holding 2
-pixels, a warp on an 8 x 8 patch (``cuda_rasterize.WARP_PATCH``); the
-tile's records staged 128 at a time in shared memory, floor-aligned
-128-pair chunk windows, each chunk culled per warp (``csrc/warp_cull.cuh``)
-and the kept pairs walked in order, T kept as a product, log T as the sum
-of ``max(chunk_log, _CS_FLOOR)``, the tile stops once every pixel's T is
-at most 1e-4.  Outputs colors ``[T, P, NC]``, logt ``[T, P]`` and exit_k
-``[T]``.  B4: chunks ``exit_k - 1 .. 0`` in reverse, each culled per warp
-as in B3, T_i in log space from B3's residual log T (B3's chunk sum
-replayed only where T may have died), the suffix of w cg, ``d_alpha = T
-cg - S / (1 - alpha) - glogt / (1 - alpha)`` (the image's alpha is ``1 -
-exp(logt)``, so glogt is nonzero whenever a loss sees the background),
-then the hand-derived transpose through the fragment to the 9 T entries,
-the center, the channels and the opacity, summed over the warp by one
-reduce-scatter and over the tile in shared memory.  B3 and B4 hold the
-same pixels, as B1 and B2 do.
+B3, in B1's layout: one block per tile of up to 512 threads, each holding
+2 pixels, a warp on an 8 x 8 patch (``cuda_rasterize.WARP_PATCH``), for
+sides up to 32, and for sides 33-64 a thread-block cluster of 4 such
+blocks, one a 32 x 32 quadrant, voting on the tile's exit through
+distributed shared memory (sides above 64 are refused,
+``cuda_rasterize.check_cuda_launch``); the tile's records staged 128 at a
+time in shared memory, floor-aligned 128-pair chunk windows, each chunk
+culled per warp (``csrc/warp_cull.cuh``) and the kept pairs walked in
+order, T kept as a product, log T as the sum of ``max(chunk_log,
+_CS_FLOOR)``, the tile stops once every pixel's T is at most 1e-4.  Outputs
+colors ``[T, P, NC]``, logt ``[T, P]`` and exit_k ``[T]``.  B4: chunks
+``exit_k - 1 .. 0`` in reverse, each culled per warp as in B3, T_i in log
+space from B3's residual log T (B3's chunk sum replayed only where T may
+have died), the suffix of w cg, ``d_alpha = T cg - S / (1 - alpha) - glogt
+/ (1 - alpha)`` (the image's alpha is ``1 - exp(logt)``, so glogt is
+nonzero whenever a loss sees the background), then the hand-derived
+transpose through the fragment to the 9 T entries, the center, the
+channels and the opacity, summed over the warp by one reduce-scatter and
+over the block in shared memory (at sides 33-64 the cluster's 4 blocks add
+their sums through distributed shared memory, each block 32 of the chunk's
+lanes).  B3 and B4 hold the same pixels, as B1 and B2 do.
 
 **What bounds them on the H100.**  As B1/B2: each pair may be evaluated
 at every pixel of its tile until the tile exits, and each record is read
@@ -58,7 +63,7 @@ import torch
 from ..core.types import RenderConfig
 from .cuda_rasterize import (CHUNK, _CS_FLOOR, _EXIT_T, _GROUP_SIZE,
                              _check_inputs, _seg_scan, _tile_origins,
-                             composite_chunks_torch)
+                             check_cuda_launch, composite_chunks_torch)
 
 ALPHA_MAX = 0.99
 NEAR_N = 0.2
@@ -143,8 +148,7 @@ def composite_surfel_fwd_cuda(records, tile_starts, tile_counts, tile_ids,
     :func:`composite_surfel_fwd`, all on one CUDA device."""
     global launches
     _check(records, tile_starts, tile_counts, tile_ids, cfg)
-    if not records.is_cuda:
-        raise ValueError("composite_surfel_fwd_cuda needs CUDA tensors")
+    check_cuda_launch(records, cfg, "composite_surfel_fwd_cuda")
     fn = _kernel()
     nf, s = records.shape
     nc = nf - 14
@@ -262,8 +266,7 @@ def composite_surfel_bwd_cuda(records, tile_starts, tile_counts, tile_ids,
     global bwd_launches
     _check_bwd(records, tile_starts, tile_counts, tile_ids, logt, exit_k,
                gcol, glogt, cfg)
-    if not records.is_cuda:
-        raise ValueError("composite_surfel_bwd_cuda needs CUDA tensors")
+    check_cuda_launch(records, cfg, "composite_surfel_bwd_cuda")
     fn = _bwd_kernel()
     nf, s = records.shape
     t = tile_starts.shape[0]

@@ -22,14 +22,16 @@ with ``--cpu`` the host clock.  accept1's oracle gate is by error mass
 elementwise max, which is reported beside it.
 
 Usage:  python -m gaussiansplats3d_tpu_torch.tools.bench_configs
-            [--small] [--cpu]
+            [--small] [--cpu] [--tile 32]
 
 --small shrinks counts 100x (a smoke run); --cpu runs on the CPU with the
-plain PyTorch kernels.
+plain PyTorch kernels; --tile sets every config's tile side (on a CUDA
+device up to 64, render/cuda_rasterize.py: MAX_CUDA_TILE).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -40,6 +42,7 @@ import time
 import numpy as np
 import torch
 
+from ..constants import DEFAULT_TILE_SIZE
 from .kernel_bench import timeit
 
 FIELDS = ("means", "scales", "quats", "colors", "sh")
@@ -65,7 +68,8 @@ def _camera(width, height, device):
 
 
 def run_config(name, n, sh_degree, width, height, ext, tmpdir,
-               check_oracle=False, backward=True, device="cuda"):
+               check_oracle=False, backward=True, device="cuda",
+               tile_size=DEFAULT_TILE_SIZE):
     import gaussiansplats3d_tpu_torch as gt
     device = torch.device(device)
     splats = _scene(n, sh_degree, device)
@@ -80,7 +84,7 @@ def run_config(name, n, sh_degree, width, height, ext, tmpdir,
     sh_avail = {0: 0, 3: 1, 8: 2, 15: 3}.get(loaded.sh.shape[1], 0)
     eff_degree = min(sh_degree, sh_avail)
     cfg = gt.RenderConfig(width=width, height=height, sh_degree=eff_degree,
-                          sort_bits=16)
+                          sort_bits=16, tile_size=tile_size)
     camera = _camera(width, height, device)
 
     def fwd():
@@ -121,7 +125,8 @@ def run_config(name, n, sh_degree, width, height, ext, tmpdir,
     return rec
 
 
-def run_reference_bytes(tmpdir, n, level, sh_degree=1, device="cuda"):
+def run_reference_bytes(tmpdir, n, level, sh_degree=1, device="cuda",
+                        tile_size=DEFAULT_TILE_SIZE):
     """Config-3 variant over REFERENCE-WRITTEN bytes at scale.
 
     Generates an n-splat `.ksplat` through the transcription of the
@@ -170,7 +175,7 @@ def run_reference_bytes(tmpdir, n, level, sh_degree=1, device="cuda"):
     reloaded = gt.load(ours_path, device=device)
 
     cfg = gt.RenderConfig(width=800, height=600, sh_degree=sh_degree,
-                          sort_bits=16)
+                          sort_bits=16, tile_size=tile_size)
     camera = _camera(800, 600, device)
     with torch.no_grad():
         img_ref = gt.render(loaded, camera, cfg)["color"]
@@ -188,23 +193,25 @@ def run_reference_bytes(tmpdir, n, level, sh_degree=1, device="cuda"):
     return rec
 
 
-def run_all(small=False, device="cuda", ref_splats=None):
-    """Every config of :func:`main`; ``ref_splats`` overrides the count of
-    the reference-bytes runs (default 1M, 10k with ``small``).  Returns
-    the records."""
+def run_all(small=False, device="cuda", ref_splats=None,
+            tile_size=DEFAULT_TILE_SIZE):
+    """Every config of :func:`main` at tile side ``tile_size``;
+    ``ref_splats`` overrides the count of the reference-bytes runs
+    (default 1M, 10k with ``small``).  Returns the records."""
     div = 100 if small else 1
     ref_n = 1_000_000 // div if ref_splats is None else ref_splats
+    kw = dict(device=device, tile_size=tile_size)
     with tempfile.TemporaryDirectory() as tmpdir:
         recs = [
             run_config("accept1_oracle", 10_000 // div, 0, 256, 256, "ply",
-                       tmpdir, check_oracle=True, device=device),
+                       tmpdir, check_oracle=True, **kw),
             run_config("accept2_truck_shaped", 1_000_000 // div, 1, 800,
-                       600, "splat", tmpdir, device=device),
+                       600, "splat", tmpdir, **kw),
             run_config("accept3_garden_shaped", 5_000_000 // div, 2, 1920,
-                       1080, "ksplat", tmpdir, device=device),
+                       1080, "ksplat", tmpdir, **kw),
             # reference-layout bytes at scale (levels 1 and 2)
-            run_reference_bytes(tmpdir, ref_n, 1, device=device),
-            run_reference_bytes(tmpdir, ref_n, 2, device=device),
+            run_reference_bytes(tmpdir, ref_n, 1, **kw),
+            run_reference_bytes(tmpdir, ref_n, 2, **kw),
         ]
     if not recs[0]["oracle_ok"]:
         raise AssertionError(f"accept1 disagrees with the oracle: {recs[0]}")
@@ -212,9 +219,15 @@ def run_all(small=False, device="cuda", ref_splats=None):
 
 
 def main(argv=None):
-    argv = list(sys.argv[1:] if argv is None else argv)
-    run_all(small="--small" in argv,
-            device="cpu" if "--cpu" in argv else "cuda")
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--small", action="store_true",
+                    help="shrink the splat counts 100x")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (plain PyTorch versions)")
+    ap.add_argument("--tile", type=int, default=DEFAULT_TILE_SIZE)
+    args = ap.parse_args(argv)
+    run_all(small=args.small, device="cpu" if args.cpu else "cuda",
+            tile_size=args.tile)
     return 0
 
 

@@ -327,14 +327,15 @@ def test_cuda_b1_matches_plain(cuda_device, depth):
         cfg_t, port_inputs(pairs, records, device=cuda_device))
 
 
-@pytest.mark.parametrize("tile", [12, 16, 20, 32])
+@pytest.mark.parametrize("tile", [12, 16, 20, 32, 40, 64])
 def test_warp_cull_mirror_keeps_every_box_hit(tile):
     """The plain mirror of B1's and B2's per-warp cull (warp_keep over
     their warp rectangles) keeps every pair that passes the per-pixel box
     test at some pixel of the warp, on pairs whose centres or box edges sit
     within 1e-3 px of a warp rectangle's edge, half of them with boxes
-    under a pixel, also where a tile's edge cuts the warps' patches; it
-    drops some; kept_pair_warps counts what it keeps."""
+    under a pixel, also where a tile's edge cuts the warps' patches and (at
+    40 and 64) on boxes across the quadrant seams; it drops some;
+    kept_pair_warps counts what it keeps."""
     cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile)
     hit, keep = cull_case(cfg, seed=40 + tile)
     assert bool(hit.any()) and bool((~keep).any())
@@ -366,6 +367,70 @@ def test_warp_rects_tile_the_tile(tile):
     assert torch.equal(inside.sum(dim=0), torch.ones(tile, tile,
                                                      dtype=torch.long))
     assert float((rects[:, 1] - rects[:, 0]).max()) == cr.WARP_PATCH - 1
+
+
+@pytest.mark.parametrize("tile", [33, 36, 40, 48, 64])
+def test_quadrant_patches_are_the_warp_rects(tile):
+    """At sides 33-64 the kernels hold a tile as a cluster of four blocks,
+    block r on the 32 x 32 quadrant (r % 2, r / 2), its 16 warps on 8 x 8
+    patches row-major from the quadrant's corner (csrc/warp_cull.cuh:
+    patch, held, rect).  The patches that hold a pixel, clipped to the
+    tile, are exactly warp_rects' (the mirror the work counts and tests
+    use), each once; the others lie wholly past the tile's edge."""
+    cfg = gt.RenderConfig(width=tile, height=tile, tile_size=tile)
+    held = []
+    for quad in range(4):
+        for warp in range(16):
+            c0 = quad % 2 * 32 + warp % 4 * cr.WARP_PATCH
+            r0 = quad // 2 * 32 + warp // 4 * cr.WARP_PATCH
+            if c0 < tile and r0 < tile:
+                held.append((c0 + 0.5, min(c0 + cr.WARP_PATCH, tile) - 0.5,
+                             r0 + 0.5, min(r0 + cr.WARP_PATCH, tile) - 0.5))
+    mirror = sorted(tuple(r) for r in cr.warp_rects(cfg).tolist())
+    assert sorted(held) == mirror
+    assert len(set(held)) == len(held) == (-(-tile // cr.WARP_PATCH)) ** 2
+
+
+@pytest.mark.parametrize("wrapper", ["b1", "b2", "b3", "b4", "b5"])
+def test_cuda_wrappers_refuse_sides_above_64(wrapper):
+    """Each CUDA compositor's wrapper takes sides up to 64 (a cluster of
+    4 blocks of 32 x 32) and refuses 65 with a ValueError that names the
+    limit and its reason, before it looks at the device; the plain
+    version takes 65 (CPU tensors here: at 64 the wrapper asks for CUDA
+    tensors instead)."""
+    from gaussiansplats3d_tpu_torch.render import cuda_surfel as cs
+    from gaussiansplats3d_tpu_torch.tools import kernel_bench as kb
+    for tile, match in ((64, "needs CUDA tensors"),
+                        (65, "tile_size 65 > 64: .*cluster")):
+        cfg = gt.RenderConfig(width=2 * tile, height=tile, tile_size=tile)
+        p = tile * tile
+        ids = torch.arange(2, dtype=torch.int32)
+        starts = torch.tensor([0, 128], dtype=torch.int32)
+        counts = torch.zeros(2, dtype=torch.int32)
+        exit_k = torch.zeros(2, dtype=torch.int32)
+        logt = torch.zeros(2, p)
+        rec11, rec17 = torch.zeros(11, 256), torch.zeros(17, 256)
+        call = {
+            "b1": lambda: cr.composite_fwd_cuda(rec11, starts, counts, ids,
+                                                cfg),
+            "b2": lambda: cr.composite_bwd_cuda(
+                rec11, starts, counts, ids, logt, exit_k,
+                torch.zeros(2, 4, p), cfg),
+            "b3": lambda: cs.composite_surfel_fwd_cuda(rec17, starts, counts,
+                                                       ids, cfg),
+            "b4": lambda: cs.composite_surfel_bwd_cuda(
+                rec17, starts, counts, ids, logt, exit_k,
+                torch.zeros(2, p, 3), logt, cfg),
+            "b5": lambda: kb.variant_cuda(rec11, starts, counts, ids, cfg,
+                                          "full")}[wrapper]
+        with pytest.raises(ValueError, match=match):
+            call()
+    plain = {"b1": cr.composite_fwd, "b3": cs.composite_surfel_fwd}.get(
+        wrapper)
+    if plain is not None:
+        out = plain(rec11 if wrapper == "b1" else rec17, starts, counts, ids,
+                    cfg)
+        assert torch.equal(out[2], exit_k)
 
 
 def port_pairs(device, tile, seed, big=0.0, n=3000, width=200, height=150):
@@ -405,22 +470,26 @@ def assert_cuda_b1_matches_plain(cfg, inputs):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("big", [0.0, 0.05])
-@pytest.mark.parametrize("tile", [12, 16, 20, 32])
+@pytest.mark.parametrize("tile", [12, 16, 20, 32, 36, 40, 64])
 def test_cuda_b1_matches_plain_at_tile_sizes(cuda_device, tile, big):
     """B1 against its plain version at tiles 12, 16, 20 and 32 (warp
-    patches cut at the tile's edge at 12 and 20), on a scene and on the
-    same scene with 5% of the splats scaled x20."""
+    patches cut at the tile's edge at 12 and 20) and 36, 40 and 64 (a
+    cluster of four 32 x 32 blocks; at 36 and 40 narrow quadrants with
+    warps wholly past the tile's edge), on a scene and on the same scene
+    with 5% of the splats scaled x20."""
     cfg, inputs = port_pairs(cuda_device, tile, seed=47, big=big)
     rx = inputs[0][9][:int(inputs[2].long().sum())]
-    assert float(rx.max()) > (2 * tile if big else 0.0)
+    # boxes across 2 tiles or more (at 64: the scene's largest, ~125 px)
+    assert float(rx.max()) > (min(2 * tile, 64) if big else 0.0)
     assert_cuda_b1_matches_plain(cfg, inputs)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [12, 16, 32])
+@pytest.mark.parametrize("tile", [12, 16, 32, 64])
 def test_cuda_b1_pairs_at_warp_edges(cuda_device, tile):
     """B1 against its plain version on hand-built records whose pairs sit
-    just inside and just outside a warp's rectangle (edge_records)."""
+    just inside and just outside a warp's rectangle (edge_records), and at
+    64 across the quadrant seams."""
     cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile)
     assert_cuda_b1_matches_plain(cfg, edge_records(cfg, 48 + tile,
                                                    cuda_device))
@@ -445,23 +514,26 @@ def assert_cuda_b2_matches_plain(cfg, inputs, device, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("big", [0.0, 0.05])
-@pytest.mark.parametrize("tile", [12, 16, 20, 32])
+@pytest.mark.parametrize("tile", [12, 16, 20, 32, 36, 40, 64])
 def test_cuda_b2_matches_plain_at_tile_sizes(cuda_device, tile, big):
     """B2 against its plain version at tiles 12, 16, 20 and 32 (tiles whose
-    square is no multiple of 32 included), on a scene and on the same
-    scene with 5% of the splats scaled x20, whose boxes span many warps
-    and tiles."""
+    square is no multiple of 32 included) and 36, 40 and 64 (a cluster of
+    four blocks, whose sums meet in distributed shared memory), on a scene
+    and on the same scene with 5% of the splats scaled x20, whose boxes
+    span many warps and tiles."""
     cfg, inputs = port_pairs(cuda_device, tile, seed=42, big=big)
     rx = inputs[0][9][:int(inputs[2].long().sum())]
-    assert float(rx.max()) > (2 * tile if big else 0.0)
+    # boxes across 2 tiles or more (at 64: the scene's largest, ~125 px)
+    assert float(rx.max()) > (min(2 * tile, 64) if big else 0.0)
     assert_cuda_b2_matches_plain(cfg, inputs, cuda_device, seed=43)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [12, 16, 32])
+@pytest.mark.parametrize("tile", [12, 16, 32, 64])
 def test_cuda_b2_pairs_at_warp_edges(cuda_device, tile):
     """B2 against its plain version on hand-built records whose pairs sit
-    just inside and just outside a warp's rectangle (edge_records)."""
+    just inside and just outside a warp's rectangle (edge_records), and at
+    64 across the quadrant seams."""
     cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile)
     inputs = edge_records(cfg, 44 + tile, cuda_device)
     assert_cuda_b2_matches_plain(cfg, inputs, cuda_device, seed=45)

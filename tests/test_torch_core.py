@@ -199,6 +199,17 @@ def test_render_config_matches_jax_and_validates():
     assert (cfg_t.tiles_x, cfg_t.tiles_y) == (cfg_j.tiles_x, cfg_j.tiles_y)
     for bad in (dict(backend="pallas"), dict(sh_degree=5), dict(sort_bits=30),
                 dict(lanes=3), dict(record_precision="bf16"),
-                dict(tile_size=64)):
+                dict(tile_size=0)):
         with pytest.raises(ValueError):
             gt.RenderConfig(**bad)
+
+
+@pytest.mark.parametrize("tile", [1, 33, 40, 64, 65, 128])
+def test_render_config_takes_every_tile_side(tile):
+    """Every side the JAX package's RenderConfig takes builds, with its
+    tile grid (the CUDA compositors take up to 64; their wrappers refuse
+    more, tests/test_torch_composite.py)."""
+    kw = dict(width=200, height=150, tile_size=tile)
+    cfg_t, cfg_j = gt.RenderConfig(**kw), gs.RenderConfig(**kw)
+    assert (cfg_t.tiles_x, cfg_t.tiles_y, cfg_t.num_tiles) == (
+        cfg_j.tiles_x, cfg_j.tiles_y, cfg_j.num_tiles)

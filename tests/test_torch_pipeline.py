@@ -133,6 +133,37 @@ def test_render_gradients_match_jax_at_tile_12():
         record_precision="f32"), "jax", False)
 
 
+# The tile-64 tests' scene: 600 splats at 128 x 128, 2 x 2 tiles of 64 (4
+# x 4 tiles of 40, cut at the image's edge, at side 40).
+T64_SIZE, T64_SPLATS = 128, 600
+
+
+@pytest.mark.parametrize("prec", ["mixed", "f32"])
+@pytest.mark.parametrize("tile", [64, 40])
+def test_render_matches_jax_at_tile_64(tile, prec):
+    """render() at tile 64 (the CUDA compositors' cluster of four 32 x 32
+    blocks; the plain versions here) and at side 40 (quadrants 32 and 8
+    wide) against gs.render(backend="jax"), under the images' bars, with
+    the same pair count."""
+    s_j, s_t, cam_j, cam_t = _scene(seed=48, n=T64_SPLATS)
+    kw = dict(width=T64_SIZE, height=T64_SIZE, tile_size=tile, sh_degree=1,
+              record_precision=prec, background=(0.2, 0.1, 0.3))
+    out_j = render_j(s_j, cam_j, gs.RenderConfig(backend="jax", **kw),
+                     return_aux=True)
+    out_t = gt.render(s_t, cam_t, gt.RenderConfig(**kw), return_aux=True)
+    _assert_close(out_t, out_j, KEYS)
+    assert int(out_t["num_pairs"]) == int(out_j["num_pairs"]) > 0
+    assert int(out_t["overflow"]) == int(out_j["overflow"]) == 0
+
+
+def test_render_gradients_match_jax_at_tile_64():
+    """The gradients of all five fields at tile 64, the plain B2 on the
+    CPU against jax.grad of backend="jax", under the same bar."""
+    _assert_gradients_match_jax(T64_SPLATS, dict(
+        width=T64_SIZE, height=T64_SIZE, tile_size=64, sh_degree=1,
+        record_precision="f32"), "jax", False)
+
+
 def _assert_gradients_match_jax(n, kw, backend, depth):
     s_j, _ = both_scenes(scene_arrays(n, sh_degree=1, seed=45))
     cam_j, cam_t = both_cameras(gs.Camera.look_at(
@@ -172,6 +203,43 @@ def test_cuda_render_gradients_match_cpu_at_tile_12(cuda_device):
     _assert_cuda_gradients_match_cpu(cuda_device, gt.RenderConfig(
         width=256, height=192, tile_size=12, sh_degree=1,
         record_precision="f32", return_depth=True))
+
+
+@pytest.mark.cuda
+def test_cuda_render_gradients_match_cpu_at_tile_64(cuda_device):
+    """The same training step at tile size 64: B1 and B2 as clusters of
+    four 32 x 32 blocks, once each."""
+    _assert_cuda_gradients_match_cpu(cuda_device, gt.RenderConfig(
+        width=256, height=192, tile_size=64, sh_degree=1,
+        record_precision="f32", return_depth=True))
+
+
+@pytest.mark.cuda
+def test_cuda_side_65_raises_and_plain_renders(cuda_device):
+    """A side above 64 needs a cluster of 9 blocks or more: render() on
+    the card raises a ValueError that names the limit before any kernel
+    launches, and the CPU render (plain versions) renders it."""
+    arrays = scene_arrays(2000, sh_degree=1, seed=49)
+    cam_j = gs.Camera.look_at((2.5, 1.5, 2.5), (0, 0, 0), fov_y_deg=60,
+                              aspect=4 / 3)
+    cfg = gt.RenderConfig(width=160, height=120, tile_size=65, sh_degree=1)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        s = gt.SplatData.from_numpy(*arrays, device=dev)
+        cam = gt.Camera.from_numpy(np.asarray(cam_j.view),
+                                   np.asarray(cam_j.proj),
+                                   np.asarray(cam_j.cam_pos), device=dev)
+        before = (cr.launches, cr.bwd_launches)
+        if dev == "cpu":
+            outs[dev] = gt.render(s, cam, cfg, return_aux=True)
+        else:
+            with pytest.raises(ValueError, match="tile_size 65 > 64"):
+                gt.render(s, cam, cfg)
+        assert (cr.launches, cr.bwd_launches) == before
+    color = outs["cpu"]["color"]
+    assert color.shape == (120, 160, 3) and bool(torch.isfinite(color).all())
+    assert int(outs["cpu"]["num_pairs"]) > 0
+    assert float(outs["cpu"]["alpha"].max()) > 0.0
 
 
 def _assert_cuda_gradients_match_cpu(cuda_device, cfg):

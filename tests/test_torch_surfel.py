@@ -301,6 +301,55 @@ def test_render_2d_gradients_match_jax(interpret_pallas, prec):
         assert p999 <= bar, (f, p999)
 
 
+def _tile_64_case(seed):
+    """The tile-64 tests' scene and configurations: 300 splats over a
+    background at 128 x 128, 2 x 2 tiles of 64, f32 records with depth."""
+    s_j, s_t = both_scenes(scene_arrays(300, sh_degree=1, seed=seed))
+    cam_j, cam_t = both_cameras(gs.Camera.look_at(
+        (2.4, 1.5, 2.2), (0, 0, 0), fov_y_deg=60, aspect=1.0))
+    cfg_j, cfg_t = _cfgs(width=128, height=128, tile_size=64,
+                         record_precision="f32", return_depth=True,
+                         background=(0.5, 0.5, 0.5))
+    return s_j, s_t, cam_j, cam_t, cfg_j, cfg_t
+
+
+def test_render_2d_matches_jax_at_tile_64(interpret_pallas):
+    """render() in 2D at tile 64 (B3 as a cluster of four 32 x 32 blocks
+    on a card; its plain version here) against gs.render in 2D with the
+    Pallas kernels in interpret mode, under the images' bars."""
+    s_j, s_t, cam_j, cam_t, cfg_j, cfg_t = _tile_64_case(seed=80)
+    out_j = gs.render(s_j, cam_j, cfg_j, return_aux=True)
+    out_t = gt.render(s_t, cam_t, cfg_t, return_aux=True)
+    assert int(out_t["num_pairs"]) == int(out_j["num_pairs"]) > 200
+    for k in ("color", "alpha", "depth"):
+        a, b = out_t[k].numpy(), np.asarray(out_j[k])
+        assert a.shape == b.shape and np.isfinite(a).all(), k
+        p999, over = error_mass(a, b)
+        assert p999 <= 1e-3 and over <= 1e-3, (k, p999, over)
+
+
+def test_render_2d_gradients_match_jax_at_tile_64(interpret_pallas):
+    """The 2D gradients of all five fields at tile 64 against jax.grad of
+    gs.render in 2D (Pallas, interpret), under the f32 bar; scales[:, 2]
+    gets none."""
+    s_j, s_t, cam_j, cam_t, cfg_j, cfg_t = _tile_64_case(seed=81)
+    g_j = jax.jit(jax.grad(lambda s: _image_loss(gs.render(s, cam_j, cfg_j),
+                                                 True)))(s_j)
+    for f in FIELDS:
+        getattr(s_t, f).requires_grad_(True)
+    _image_loss(gt.render(s_t, cam_t, cfg_t), True).backward()
+    assert float(s_t.scales.grad[:, 2].abs().max()) == 0.0
+    for f in FIELDS:
+        ref = np.asarray(getattr(g_j, f))
+        got = getattr(s_t, f).grad.numpy()
+        if f == "scales":
+            ref, got = ref[:, :2], got[:, :2]
+        scale = np.abs(ref).max()
+        assert scale > 0.0 and np.isfinite(got).all(), f
+        p999, _ = error_mass(got / scale, ref / scale)
+        assert p999 <= 1e-3, (f, p999)
+
+
 def test_train_step_2d_matches_jax():
     """make_train_step with render_mode_2d trains surfels: its loss is the
     JAX package's 2D step's, not the 3D step's, scales[:, 2] gets no

@@ -278,14 +278,14 @@ def test_build_hashes_the_fragment_header():
         _build.Path.read_bytes = orig
 
 
-@pytest.mark.parametrize("tile", [12, 16, 20, 32])
+@pytest.mark.parametrize("tile", [12, 16, 20, 32, 40, 64])
 def test_warp_cull_mirror_keeps_every_box_hit(tile):
     """The plain mirror of B3's and B4's per-warp cull (warp_keep over
     their warp rectangles) keeps every pair that passes the per-pixel box
     test at some pixel of the warp, on pairs whose centres or box edges sit
     within 1e-3 px of a warp rectangle's edge, half of them with boxes
-    under a pixel, also where a tile's edge cuts the warps' patches; and
-    it drops some."""
+    under a pixel, also where a tile's edge cuts the warps' patches and (at
+    40 and 64) on boxes across the quadrant seams; and it drops some."""
     cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile,
                           render_mode_2d=True)
     hit, keep = cull_case(cfg, seed=70 + tile)
@@ -351,22 +351,25 @@ def assert_cuda_b3_matches_plain(cfg, inputs):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("big", [0.0, 0.05])
-@pytest.mark.parametrize("tile", [12, 16, 20, 32])
+@pytest.mark.parametrize("tile", [12, 16, 20, 32, 36, 40, 64])
 def test_cuda_b3_matches_plain_at_tile_sizes(cuda_device, tile, big):
     """B3 against its plain version at tiles 12, 16, 20 and 32 (warp
-    patches cut at the tile's edge at 12 and 20), on a scene and on the
-    same scene with 5% of the splats scaled x20."""
+    patches cut at the tile's edge at 12 and 20) and 36, 40 and 64 (a
+    cluster of four 32 x 32 blocks; narrow quadrants at 36 and 40), on a
+    scene and on the same scene with 5% of the splats scaled x20."""
     cfg, inputs = port_surfels(cuda_device, tile, seed=76, big=big)
     rx = inputs[0][15][:int(inputs[2].long().sum())]
-    assert float(rx.max()) > (2 * tile if big else 0.0)
+    # boxes across 2 tiles or more (at 64: the scene's largest, ~125 px)
+    assert float(rx.max()) > (min(2 * tile, 64) if big else 0.0)
     assert_cuda_b3_matches_plain(cfg, inputs)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [12, 16, 32])
+@pytest.mark.parametrize("tile", [12, 16, 32, 64])
 def test_cuda_b3_pairs_at_warp_edges(cuda_device, tile):
     """B3 against its plain version on hand-built surfels that sit just
-    inside and just outside a warp's rectangle (edge_surfels)."""
+    inside and just outside a warp's rectangle (edge_surfels), and at 64
+    across the quadrant seams."""
     cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile,
                           render_mode_2d=True)
     assert_cuda_b3_matches_plain(cfg, edge_surfels(cfg, 77 + tile,
@@ -396,22 +399,25 @@ def assert_cuda_b4_matches_plain(cfg, inputs, device, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("big", [0.0, 0.05])
-@pytest.mark.parametrize("tile", [12, 16, 20, 32])
+@pytest.mark.parametrize("tile", [12, 16, 20, 32, 36, 40, 64])
 def test_cuda_b4_matches_plain_at_tile_sizes(cuda_device, tile, big):
-    """B4 against its plain version at tiles 12, 16, 20 and 32, on a scene
-    and on the same scene with 5% of the splats scaled x20, whose boxes
-    span many warps and tiles."""
+    """B4 against its plain version at tiles 12, 16, 20 and 32 and 36, 40
+    and 64 (a cluster of four blocks, whose sums meet in distributed
+    shared memory), on a scene and on the same scene with 5% of the
+    splats scaled x20, whose boxes span many warps and tiles."""
     cfg, inputs = port_surfels(cuda_device, tile, seed=71, big=big)
     rx = inputs[0][15][:int(inputs[2].long().sum())]
-    assert float(rx.max()) > (2 * tile if big else 0.0)
+    # boxes across 2 tiles or more (at 64: the scene's largest, ~125 px)
+    assert float(rx.max()) > (min(2 * tile, 64) if big else 0.0)
     assert_cuda_b4_matches_plain(cfg, inputs, cuda_device, seed=72)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [12, 16, 32])
+@pytest.mark.parametrize("tile", [12, 16, 32, 64])
 def test_cuda_b4_pairs_at_warp_edges(cuda_device, tile):
     """B4 against its plain version on hand-built surfels that sit just
-    inside and just outside a warp's rectangle (edge_surfels)."""
+    inside and just outside a warp's rectangle (edge_surfels), and at 64
+    across the quadrant seams."""
     cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile,
                           render_mode_2d=True)
     inputs = edge_surfels(cfg, 73 + tile, cuda_device)

@@ -78,22 +78,24 @@ def wall_scene(n=500, n_wall=400, seed=3):
 _cache = {}
 
 
-def wall_records():
+def wall_records(size=64, tile=32):
     """(cfg_j, cfg_t, JAX [16, S] records, starts, counts): the wall scene
-    at 64x64 (4 tiles of 32), binned once by the JAX package in f32."""
-    if "rec" not in _cache:
+    at size x size (by default 64x64, 4 tiles of 32), binned once by the
+    JAX package in f32."""
+    if (size, tile) not in _cache:
         s_j = gs.SplatData(*(jnp.asarray(a) for a in wall_scene()))
         cam = gs.Camera.look_at((0.0, 0.0, 3.5), (0, 0, 0), fov_y_deg=60,
                                 aspect=1.0)
-        kw = dict(width=64, height=64, record_precision="f32")
+        kw = dict(width=size, height=size, tile_size=tile,
+                  record_precision="f32")
         cfg_j = gs.RenderConfig(**kw)
         q = jax.jit(lambda s: bin_j.bin_sort_records(
             proj_j.project_splats(s, cam, cfg_j), cfg_j))(s_j)
         rec16 = pr.pack_records_flat(q.xs, q.ys, q.cas, q.cbs, q.ccs, q.crs,
                                      q.cgs, q.cbs2, q.opas, q.rxs, q.rys)
-        _cache["rec"] = (cfg_j, gt.RenderConfig(**kw), rec16,
-                         q.tile_starts, q.tile_counts)
-    return _cache["rec"]
+        _cache[size, tile] = (cfg_j, gt.RenderConfig(**kw), rec16,
+                              q.tile_starts, q.tile_counts)
+    return _cache[size, tile]
 
 
 def port_inputs(rec16, starts, counts, device="cpu"):
@@ -113,16 +115,30 @@ def norm_p999(a, b):
 
 @pytest.mark.parametrize("jax_variant", list(JAX_VARIANTS))
 def test_b5_plain_matches_jax_build_variant(interpret_pallas, jax_variant):
-    cfg_j, cfg_t, rec16, starts, counts = wall_records()
+    _assert_b5_plain_matches_jax(wall_records(), jax_variant)
+
+
+@pytest.mark.parametrize("jax_variant", list(JAX_VARIANTS))
+def test_b5_plain_matches_jax_build_variant_at_tile_64(interpret_pallas,
+                                                       jax_variant):
+    """The same at tile 64 (the wall scene at 128 x 128, 2 x 2 tiles; on a
+    card B5 runs each tile as a cluster of four 32 x 32 blocks)."""
+    _assert_b5_plain_matches_jax(wall_records(size=128, tile=64),
+                                 jax_variant)
+
+
+def _assert_b5_plain_matches_jax(records, jax_variant):
+    cfg_j, cfg_t, rec16, starts, counts = records
     t = cfg_j.num_tiles
+    p = cfg_j.tile_size ** 2
     cj, tj, ej = (np.asarray(x) for x in kb_j.build_variant(
         cfg_j, jax_variant)(rec16, starts, counts,
                             jnp.arange(t, dtype=jnp.int32)))
     variant = JAX_VARIANTS[jax_variant]
     ct, tt, et = (x.numpy() for x in kb.build_variant(cfg_t, variant)(
         *port_inputs(rec16, starts, counts)))
-    assert ct.shape == cj.shape == (t, 1024, 3)
-    assert tt.shape == tj.shape == (t, 1024, 1)
+    assert ct.shape == cj.shape == (t, p, 3)
+    assert tt.shape == tj.shape == (t, p, 1)
     np.testing.assert_array_equal(et, ej)
     bar = 1e-4 if jax_variant == "mxu_scan_3" else 1e-5
     assert norm_p999(ct, cj) <= bar
@@ -194,6 +210,25 @@ def test_profile_stages_prints_every_stage():
         assert math.isfinite(float(line.split()[len(key.split())]))
 
 
+@pytest.mark.parametrize("tool", ["kernel_bench", "profile_stages"])
+def test_tools_take_tile_64(monkeypatch, tool):
+    """kernel_bench and profile_stages at --tile 64 on the CPU: the side
+    reaches RenderConfig (the tools check nothing of their own)."""
+    monkeypatch.setattr(kb, "timeit", lambda fn, device, iters=5:
+                        (fn(), 0.0)[1])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        if tool == "kernel_bench":
+            assert kb.main(["40", "--cpu", "--tile", "64"]) == 0
+        else:
+            assert profile_stages.main(["300", "--cpu", "--width", "128",
+                                        "--height", "96", "--tile",
+                                        "64"]) == 0
+    text = out.getvalue()
+    assert ("N=40 tile=64 pairs=" in text if tool == "kernel_bench"
+            else "tile=64" in text)
+
+
 def test_gpu_parity_without_a_card_returns_2(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out = io.StringIO()
@@ -249,6 +284,16 @@ def test_bench_configs_run_config(tmp_path, ext, sh):
     assert rec["fwd_ms"] > 0 and rec["fwd_bwd_ms"] > 0
     if ext == "ply":
         assert rec["oracle_ok"] is True
+
+
+def test_bench_configs_run_config_at_tile_64(tmp_path):
+    """accept1's run at tile 64 (the tools' --tile reaches RenderConfig,
+    with no check of their own): the oracle gate holds."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        rec = bench_configs.run_config("cfg_t64", 300, 0, 128, 96, "ply",
+                                       str(tmp_path), check_oracle=True,
+                                       device="cpu", tile_size=64)
+    assert rec["resolution"] == "128x96" and rec["oracle_ok"] is True
 
 
 def test_train_scene_loads_a_scene_and_saves_the_fit(tmp_path):
@@ -322,11 +367,12 @@ def assert_cuda_b5_matches_plain(args):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [12, 16, 20, 32])
+@pytest.mark.parametrize("tile", [12, 16, 20, 32, 36, 40, 64])
 def test_cuda_b5_variants_match_plain(cuda_device, tile):
     """Every B5 variant on the card against its plain version, at tiles
     12, 16, 20 and 32 (128 to 512 threads a block; warp patches cut at
-    the tile's edge at 12 and 20)."""
+    the tile's edge at 12 and 20) and 36, 40 and 64 (a cluster of four
+    blocks of 512, with narrow quadrants at 36 and 40)."""
     arrays = scene_arrays(3000, seed=7, extent=1.0, scale_mul=3.0)
     s = gt.SplatData.from_numpy(*arrays, device=cuda_device)
     cam = gt.Camera.look_at((2.0, 1.2, 2.0), (0, 0, 0), aspect=4 / 3,
@@ -342,11 +388,12 @@ def test_cuda_b5_variants_match_plain(cuda_device, tile):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [12, 16, 32])
+@pytest.mark.parametrize("tile", [12, 16, 32, 64])
 def test_cuda_b5_pairs_at_warp_edges(cuda_device, tile):
     """Every B5 variant against its plain version on hand-built records
     whose pairs sit just inside and just outside a warp's rectangle
-    (edge_records), in windows that start mid-chunk."""
+    (edge_records), in windows that start mid-chunk, and at 64 across the
+    quadrant seams."""
     cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile)
     assert_cuda_b5_matches_plain(
         (*edge_records(cfg, 52 + tile, cuda_device), cfg))

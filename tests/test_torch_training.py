@@ -69,13 +69,33 @@ def test_splat_params_from_numpy_and_splats_match_jax():
 
 
 def test_train_step_matches_jax():
+    cfg_t, lr = _assert_steps_match_jax(
+        dict(width=64, height=64, sh_degree=1, sort_bits=16), steps=3)
+    # the mesh's own arguments need a mesh (tests/test_torch_sharded.py
+    # drives the mesh path)
+    for kw in (dict(route="a2a"), dict(slab_mode="interleaved"),
+               dict(exchange_capacity=256)):
+        with pytest.raises(ValueError):
+            train_t.make_train_step(cfg_t, None, train_t.adam(lr), **kw)
+
+
+def test_train_step_matches_jax_at_tile_64():
+    """One step at tile 64 (128 x 128: 2 x 2 tiles; on a card B1 and B2
+    run as clusters of four 32 x 32 blocks), under the same bars."""
+    _assert_steps_match_jax(dict(width=128, height=128, tile_size=64,
+                                 sh_degree=1, sort_bits=16), steps=1)
+
+
+def _assert_steps_match_jax(kw, steps):
+    """``steps`` steps of make_train_step against the JAX package's on a
+    1-device mesh from the same 256 splats and target: loss and grad_norm
+    at each, the parameters after the last.  Returns (port cfg, lr)."""
     s_j, s_t = both_scenes(scene_arrays(256, sh_degree=1, seed=51))
     cam_j, cam_t = both_cameras(gs.Camera.look_at((2.2, 1.4, 2.0),
                                                   (0, 0, 0)))
-    kw = dict(width=64, height=64, sh_degree=1, sort_bits=16)
     cfg_j, cfg_t = gs.RenderConfig(**kw), gt.RenderConfig(**kw)
     target = np.random.default_rng(52).uniform(
-        0.0, 1.0, (64, 64, 3)).astype(np.float32)
+        0.0, 1.0, (kw["height"], kw["width"], 3)).astype(np.float32)
     lr = 1e-2
 
     opt = optax.adam(lr)
@@ -89,24 +109,19 @@ def test_train_step_matches_jax():
                                                    cfg_t)
     np.testing.assert_array_equal(tiles_t.numpy(), np.asarray(tiles_j))
     np.testing.assert_array_equal(mask_t.numpy(), np.asarray(mask_j))
-    for _ in range(3):
+    for _ in range(steps):
         state_j, m_j = step_j(state_j, cam_j, tiles_j, mask_j)
         state_t, m_t = step_t(state_t, cam_t, tiles_t, mask_t)
         for k in ("loss", "grad_norm"):
             np.testing.assert_allclose(float(m_t[k]), float(m_j[k]),
                                        rtol=1e-5)
-    assert state_t.step == int(state_j.step) == 3
+    assert state_t.step == int(state_j.step) == steps
     for f, a, b in zip(FIELDS, _leaves(state_t.params),
                        _leaves(state_j.params)):
-        d = np.abs(a - b).ravel() / (3 * lr)
+        d = np.abs(a - b).ravel() / (steps * lr)
         assert np.quantile(d, 0.99) <= 2e-2, (f, np.quantile(d, 0.99))
         assert d.max() <= 1.0, f
-    # the mesh's own arguments need a mesh (tests/test_torch_sharded.py
-    # drives the mesh path)
-    for kw in (dict(route="a2a"), dict(slab_mode="interleaved"),
-               dict(exchange_capacity=256)):
-        with pytest.raises(ValueError):
-            train_t.make_train_step(cfg_t, None, train_t.adam(lr), **kw)
+    return cfg_t, lr
 
 
 def _densify_inputs(n, seed, tied_dead):

@@ -39,7 +39,10 @@ def edge_pairs(cfg, seed, n=3000):
     pixel (rx, ry < 1).  On each axis a third of the centres sit within
     1e-3 px of an edge of a random warp's rectangle
     (cuda_rasterize.warp_rects), a third put their box's edge there, the
-    rest lie anywhere over the tile and 3 px around it."""
+    rest lie anywhere over the tile and 3 px around it.  At sides above 32,
+    where the kernels hold a tile as four 32 x 32 quadrants, a quarter of
+    the centres on each axis then move to within their box's half-width of
+    the seam at 32, so that their boxes cross it."""
     from gaussiansplats3d_tpu_torch.render import cuda_rasterize as cr
     rng = np.random.default_rng(seed)
     ts = cfg.tile_size
@@ -60,6 +63,12 @@ def edge_pairs(cfg, seed, n=3000):
                                [edge + jitter,
                                 edge + sign * r[:, axis] + jitter],
                                c[:, axis])
+    if ts > 32:
+        for axis in (0, 1):
+            seam = rng.random(n) < 0.25
+            c[:, axis] = np.where(
+                seam, 32.0 + rng.uniform(-1.0, 1.0, n) * r[:, axis],
+                c[:, axis])
     xy = (corner + c).astype(np.float32)
     r = r.astype(np.float32)
     return xy[:, 0], xy[:, 1], r[:, 0], r[:, 1], tile
