@@ -141,7 +141,15 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    torch.profiler views of phases 4 and 5 at tile 64.  The kernels
    line's entries gain per_tile["64"]: the kernel's tile-64 ms, its
    tile-32 ms, plain ms and tiles, bound, largest difference, clusters and
-   the tile-64 paths' launches.
+   the tile-64 paths' launches;
+14. the same at tile 128 (1920x1080 in 135 tiles): one block a tile walks
+   its 4 x 4 sub-tiles of 32 x 32.  Beside phase 13's checks, for B1 and
+   B3 on the compared tiles the walk's bookkeeping from the plain versions
+   (cuda_rasterize.walk_exits): how many sub-tiles ran a second pass, the
+   mean of the sub-tiles' own exits beside the mean tile exit, and the
+   tile's exit_k the largest of its sub-tiles' own.  The kernels line's
+   entries gain per_tile["128"], with the kernel's tile-32 and tile-64 ms
+   of this run (no clusters: None).
 
 Prints a {"native": ...} line (the build, phase 10's loads, phase 12), a
 {"kernels": [...]} line, and last {"ok": true, "device": ...}.
@@ -292,6 +300,10 @@ DECODE_REPS = 2
 # of 32); the kernels run on every tile.
 TILE_64 = 64
 T64_PLAIN_EVERY = 8
+# Phase 14: the same at tile 128 (one block a tile walks its 4 x 4
+# sub-tiles of 32 x 32), 135 tiles, the plain versions on every 8th.
+TILE_128 = 128
+T128_PLAIN_EVERY = 8
 
 
 # what the {"native": ...} line reports: the build (phase 1), the viewer's
@@ -2924,7 +2936,7 @@ def multi_gpu_slice(gt, cr, cs, kb, splats, cam, cfg, device):
     return res, tally.by_path
 
 
-# --- phase 13: the tile-64 main path ----------------------------------------
+# --- phases 13 and 14: the main path at tiles 64 and 128 --------------------
 
 def plain_subset(args, every):
     """Every ``every``-th tile of a compositor's (records, starts, counts,
@@ -2948,13 +2960,15 @@ def window_mask(starts, counts, capacity):
     return mask
 
 
-def t64_entry(name, ms, plain_ms, plain_tiles, work, max_abs, clusters):
-    """A kernel's tile-64 record: its time on every tile, the plain
-    version's on the subset, the bound from this run's work on every tile,
-    the largest difference and the card's cudaOccupancyMaxActiveClusters."""
+def tile_entry(name, side, ms, plain_ms, plain_tiles, work, max_abs,
+               clusters):
+    """A kernel's record at tile ``side``: its time on every tile, the
+    plain version's on the subset, the bound from this run's work on every
+    tile, the largest difference and, at sides 33-64, the card's
+    cudaOccupancyMaxActiveClusters (None above 64: no cluster)."""
     counts, ops, nbytes = work
     bound_ms, bound_by, ops_ms, bytes_ms = bound_of(ops, nbytes)
-    log(f"{name} tile {TILE_64}: time {ms:.3f} ms  plain {plain_ms:.1f} ms "
+    log(f"{name} tile {side}: time {ms:.3f} ms  plain {plain_ms:.1f} ms "
         f"on {plain_tiles} tiles  bound {bound_ms:.4f} ms by {bound_by} "
         f"(ops {ops_ms:.4f} ms, bytes {bytes_ms:.4f} ms); pairs "
         f"{counts['pairs']}, in box {counts['in_box']}, contributing "
@@ -2967,11 +2981,44 @@ def t64_entry(name, ms, plain_ms, plain_tiles, work, max_abs, clusters):
             "max_active_clusters": clusters}
 
 
-def t64_gaussians(gt_build, cr, kb, splats, cam, cfg):
-    """B1, B2 and B5's `full` at tile 64 on the render-mixed records: the
-    kernels on every tile, their plain versions on every
-    T64_PLAIN_EVERY-th (B2's gradient compared on those tiles' window
-    slots, each written by its tile alone), by the bars of phase 2."""
+def clusters_of(gt_build, name, arg, cfg):
+    """cudaOccupancyMaxActiveClusters of kernel ``name``'s cluster form at
+    sides 33-64; None above 64, where one block holds a tile."""
+    if cfg.tile_size > TILE_64:
+        return None
+    return gt_build.max_active_clusters(name, arg)
+
+
+def walk_stats(cr, kernel, fwd_torch, sub, exit_k, cfg):
+    """Above 64, the walk's bookkeeping on the compared tiles
+    (cuda_rasterize.walk_exits, from the plain version): the sub-tiles
+    that ran a second pass, the mean of the sub-tiles' own exits beside
+    the mean tile exit; raises unless the tile's exit_k is the largest of
+    its sub-tiles' own on >= BAR_EXIT_AGREE of them."""
+    k_sub, second = cr.walk_exits(fwd_torch, *sub, cfg)
+    k_sub, second = k_sub.long(), second.long()
+    agree = float((k_sub.amax(dim=1) == exit_k.long()).double().mean())
+    res = {"sub_tiles": int(k_sub.numel()),
+           "second_passes": int(second.sum()),
+           "second_pass_share": float(second.sum()) / k_sub.numel(),
+           "mean_k_sub": float(k_sub.double().mean()),
+           "mean_exit_k": float(exit_k.double().mean()),
+           "exit_is_max_k_sub": agree}
+    log(f"{kernel} walk at tile {cfg.tile_size}, {exit_k.shape[0]} tiles: "
+        f"{res['second_passes']} of {res['sub_tiles']} sub-tiles ran a "
+        f"second pass; mean own exit {res['mean_k_sub']:.2f}, mean tile exit "
+        f"{res['mean_exit_k']:.2f}; exit_k = max own exit on {agree:.4f}")
+    if agree < BAR_EXIT_AGREE:
+        raise AssertionError(f"{kernel}: the tile's exit is its sub-tiles' "
+                             f"largest on only {agree}")
+    return res
+
+
+def tile_gaussians(gt_build, cr, kb, splats, cam, cfg, every):
+    """B1, B2 and B5's `full` at ``cfg``'s tile side on the render-mixed
+    records: the kernels on every tile, their plain versions on every
+    ``every``-th (B2's gradient compared on those tiles' window slots, each
+    written by its tile alone), by the bars of phase 2."""
     from gaussiansplats3d_tpu_torch.render.binning import bin_sort_records
     from gaussiansplats3d_tpu_torch.render.projection import project_splats
     with torch.no_grad():
@@ -2979,9 +3026,10 @@ def t64_gaussians(gt_build, cr, kb, splats, cam, cfg):
     ids = torch.arange(cfg.num_tiles, dtype=torch.int32,
                        device=splats.device)
     args = (pairs.records, pairs.tile_starts, pairs.tile_counts, ids)
-    sub, sel = plain_subset(args, T64_PLAIN_EVERY)
+    sub, sel = plain_subset(args, every)
     n_sub = int(sel.shape[0])
-    name = f"tile-{TILE_64}"
+    side = cfg.tile_size
+    name = f"tile-{side}"
     out = {}
 
     chans, logt, exit_k = cr.composite_fwd_cuda(*args, cfg)
@@ -2992,11 +3040,14 @@ def t64_gaussians(gt_build, cr, kb, splats, cam, cfg):
                      ("logt", logt[sel], ref[1], BAR_P999["logt"])],
         ref[2], exit_k[sel], n_sub)
     ms = cuda_ms(lambda: cr.composite_fwd_cuda(*args, cfg), reps=10)
-    out["composite_fwd"] = t64_entry(
-        "B1", ms, plain_ms, n_sub, b1_work(cr, pairs, exit_k, cfg),
+    out["composite_fwd"] = tile_entry(
+        "B1", side, ms, plain_ms, n_sub, b1_work(cr, pairs, exit_k, cfg),
         max(err["chans"]["max_abs"], err["logt"]["max_abs"]),
-        gt_build.max_active_clusters("composite_fwd", 3))
+        clusters_of(gt_build, "composite_fwd", 3, cfg))
     out["composite_fwd"]["mean_exit_k"] = float(exit_k.double().mean())
+    if side > TILE_64:
+        out["composite_fwd"]["walk"] = walk_stats(
+            cr, "B1", cr.composite_fwd_torch, sub, exit_k[sel], cfg)
 
     gch = color_loss_cotangent(chans, cfg)
     bargs = args + (logt, exit_k, gch, cfg)
@@ -3010,10 +3061,10 @@ def t64_gaussians(gt_build, cr, kb, splats, cam, cfg):
     if len(rows) != grad.shape[0] - 2:
         raise AssertionError(f"B2 on {name}: a record row has no gradient")
     ms = cuda_ms(lambda: cr.composite_bwd_cuda(*bargs), reps=10)
-    out["composite_bwd"] = t64_entry(
-        "B2", ms, plain_ms, n_sub, b2_work(cr, pairs, exit_k, cfg),
+    out["composite_bwd"] = tile_entry(
+        "B2", side, ms, plain_ms, n_sub, b2_work(cr, pairs, exit_k, cfg),
         max(r["max_abs"] for r in rows),
-        gt_build.max_active_clusters("composite_bwd", 3))
+        clusters_of(gt_build, "composite_bwd", 3, cfg))
 
     colors, trans, exit_k = kb.variant_cuda(*args, cfg, "full")
     torch.cuda.synchronize()
@@ -3035,18 +3086,21 @@ def t64_gaussians(gt_build, cr, kb, splats, cam, cfg):
         raise AssertionError(f"B5 full exit_k agrees on only {agree} "
                              f"({name})")
     ms = cuda_ms(lambda: kb.variant_cuda(*args, cfg, "full"), reps=10)
-    out["kernel_bench"] = t64_entry(
-        "B5 full", ms, plain_ms, n_sub, b5_work(cr, pairs, exit_k, cfg),
-        max_abs, gt_build.max_active_clusters("kernel_bench", 0))
+    out["kernel_bench"] = tile_entry(
+        "B5 full", side, ms, plain_ms, n_sub,
+        b5_work(cr, pairs, exit_k, cfg), max_abs,
+        clusters_of(gt_build, "kernel_bench", 0, cfg))
     return out
 
 
-def t64_surfels(gt_build, cs, splats, cam, cfg):
-    """B3 and B4 at tile 64 on the 2d-mixed records, as t64_gaussians."""
+def tile_surfels(gt_build, cr, cs, splats, cam, cfg, every):
+    """B3 and B4 at ``cfg``'s tile side on the 2d-mixed records, as
+    tile_gaussians."""
     args, overflow = surfel_inputs(splats, cam, cfg)
-    sub, sel = plain_subset(args, T64_PLAIN_EVERY)
+    sub, sel = plain_subset(args, every)
     n_sub = int(sel.shape[0])
-    name = f"2d tile-{TILE_64}"
+    side = cfg.tile_size
+    name = f"2d tile-{side}"
     out = {}
     colors, logt, exit_k = cs.composite_surfel_fwd_cuda(*args, cfg)
     torch.cuda.synchronize()
@@ -3057,11 +3111,14 @@ def t64_surfels(gt_build, cs, splats, cam, cfg):
                      ("logt", logt[sel], ref[1], BAR_P999["logt"])],
         ref[2], exit_k[sel], n_sub)
     ms = cuda_ms(lambda: cs.composite_surfel_fwd_cuda(*args, cfg), reps=10)
-    out["surfel_fwd"] = t64_entry(
-        "B3", ms, plain_ms, n_sub, b3_work(cs, args, exit_k, cfg),
+    out["surfel_fwd"] = tile_entry(
+        "B3", side, ms, plain_ms, n_sub, b3_work(cs, args, exit_k, cfg),
         max(err["colors"]["max_abs"], err["logt"]["max_abs"]),
-        gt_build.max_active_clusters("surfel_fwd", 3))
+        clusters_of(gt_build, "surfel_fwd", 3, cfg))
     out["surfel_fwd"]["overflow"] = overflow
+    if side > TILE_64:
+        out["surfel_fwd"]["walk"] = walk_stats(
+            cr, "B3", cs.composite_surfel_fwd_torch, sub, exit_k[sel], cfg)
 
     gcol, glogt = surfel_cotangents(colors, logt, cfg)
     bargs = args + (logt, exit_k, gcol, glogt, cfg)
@@ -3076,62 +3133,65 @@ def t64_surfels(gt_build, cs, splats, cam, cfg):
         raise AssertionError(f"B4 on {name}: a center, channel or opacity "
                              f"row has no gradient")
     ms = cuda_ms(lambda: cs.composite_surfel_bwd_cuda(*bargs), reps=10)
-    out["surfel_bwd"] = t64_entry(
-        "B4", ms, plain_ms, n_sub, b4_work(cs, args, exit_k, cfg),
+    out["surfel_bwd"] = tile_entry(
+        "B4", side, ms, plain_ms, n_sub, b4_work(cs, args, exit_k, cfg),
         max(r["max_abs"] for r in rows),
-        gt_build.max_active_clusters("surfel_bwd", 3))
+        clusters_of(gt_build, "surfel_bwd", 3, cfg))
     return out
 
 
-def tile64_slice(gt, gt_build, cr, cs, kb, splats, cam, cfg, t32):
-    """Phase 13: the main path at tile 64 (B1-B5 hold each 64 x 64 tile as
-    a cluster of four 32 x 32 blocks): B1, B2 and B5's `full`, then B3 and
-    B4, against their plain versions (t64_gaussians, t64_surfels); then
-    the render and the step in 3D and 2D through render() by the functions
-    of phases 3, 5 and 8, each with its counters, beside the tile-32
-    medians of this run (``t32``: path -> configuration -> ms).  Returns
-    the kernels' records and the (B1, ..., B5) launches of each path."""
+def tile_slice(gt, gt_build, cr, cs, kb, splats, cam, cfg, t32, side,
+               every, phase):
+    """Phases 13 and 14: the main path at tile ``side`` (64: B1-B5 hold
+    each tile as a cluster of four 32 x 32 blocks; 128: one block a tile
+    walks its 32 x 32 sub-tiles): B1, B2 and B5's `full`, then B3 and B4,
+    against their plain versions on every ``every``-th tile
+    (tile_gaussians, tile_surfels); then the render and the step in 3D and
+    2D through render() by the functions of phases 3, 5 and 8, each with
+    its counters, beside the tile-32 medians of this run (``t32``: path ->
+    configuration -> ms).  Returns the kernels' records and the (B1, ...,
+    B5) launches of each path."""
     t_phase = time.perf_counter()
-    cfg64 = cfg.replace(tile_size=TILE_64)
-    cfg64_2d = cfg64.replace(render_mode_2d=True)
-    log(f"phase 13: tile {TILE_64}, {cfg64.num_tiles} tiles "
-        f"({cfg64.tiles_x} x {cfg64.tiles_y}); the plain versions on every "
-        f"{T64_PLAIN_EVERY}th")
-    kernels = t64_gaussians(gt_build, cr, kb, splats, cam, cfg64)
-    kernels.update(t64_surfels(gt_build, cs, splats, cam, cfg64_2d))
+    cfgt = cfg.replace(tile_size=side)
+    cfgt_2d = cfgt.replace(render_mode_2d=True)
+    log(f"phase {phase}: tile {side}, {cfgt.num_tiles} tiles "
+        f"({cfgt.tiles_x} x {cfgt.tiles_y}); the plain versions on every "
+        f"{every}th")
+    kernels = tile_gaussians(gt_build, cr, kb, splats, cam, cfgt, every)
+    kernels.update(tile_surfels(gt_build, cr, cs, splats, cam, cfgt_2d,
+                                every))
     kb.reset_launches()
     cs.reset_launches()
-    runs, render_b1 = main_path(gt, cr, splats, cam, cfg64)
-    steps, (step_b1, step_b2) = train_path(gt, cr, splats, cam, cfg64)
+    runs, render_b1 = main_path(gt, cr, splats, cam, cfgt)
+    steps, (step_b1, step_b2) = train_path(gt, cr, splats, cam, cfgt)
     if (cs.launches, cs.bwd_launches) != (0, 0):
-        raise AssertionError("B3 or B4 launched on a 3D path at tile 64")
-    run2d = main_path_2d(gt, cr, cs, splats, cam, cfg64_2d)
-    step2d = train_path_2d(gt, cr, cs, splats, cam, cfg64_2d)
-    # device time, idle share and top kernels at tile 64, as phases 4 and
-    # 5 read them at tile 32
-    profiles = {"render": profile_render(gt, splats, cam, cfg64,
+        raise AssertionError(f"B3 or B4 launched on a 3D path at tile {side}")
+    run2d = main_path_2d(gt, cr, cs, splats, cam, cfgt_2d)
+    step2d = train_path_2d(gt, cr, cs, splats, cam, cfgt_2d)
+    # device time, idle share and top kernels at this side, as phases 4
+    # and 5 read them at tile 32
+    profiles = {"render": profile_render(gt, splats, cam, cfgt,
                                          runs["mixed"]["median_ms"]),
-                "train_step": profile_step(gt, splats, cam, cfg64,
+                "train_step": profile_step(gt, splats, cam, cfgt,
                                            steps["mixed"]["median_ms"])}
     if kb.launches != 0:
         raise AssertionError(f"B5 launched {kb.launches} times on the "
-                             f"tile-{TILE_64} paths")
+                             f"tile-{side} paths")
     medians = {"render": {k: r["median_ms"] for k, r in runs.items()},
                "train_step": {k: r["median_ms"] for k, r in steps.items()},
                "render_2d": {"2d-mixed": run2d["median_ms"]},
                "train_step_2d": {"2d-mixed": step2d["median_ms"]}}
     for path, by_config in medians.items():
         for c, ms in by_config.items():
-            log(f"tile {TILE_64} {path} {c}: median {ms:.2f} ms; tile 32 in "
+            log(f"tile {side} {path} {c}: median {ms:.2f} ms; tile 32 in "
                 f"this run {t32[path][c]:.2f} ms")
     seconds = time.perf_counter() - t_phase
-    log(f"phase 13 (tile {TILE_64}): {seconds:.1f} s")
+    log(f"phase {phase} (tile {side}): {seconds:.1f} s")
     launches = {
-        f"tile-{TILE_64} render": (render_b1, 0, 0, 0, 0),
-        f"tile-{TILE_64} train_step": (step_b1, step_b2, 0, 0, 0),
-        f"tile-{TILE_64} render_2d": run2d["launches_b1_b2_b3_b4"] + (0,),
-        f"tile-{TILE_64} train_step_2d":
-            step2d["launches_b1_b2_b3_b4"] + (0,)}
+        f"tile-{side} render": (render_b1, 0, 0, 0, 0),
+        f"tile-{side} train_step": (step_b1, step_b2, 0, 0, 0),
+        f"tile-{side} render_2d": run2d["launches_b1_b2_b3_b4"] + (0,),
+        f"tile-{side} train_step_2d": step2d["launches_b1_b2_b3_b4"] + (0,)}
     return {"kernels": kernels, "median_ms": medians, "seconds": seconds,
             "tile_32_median_ms": t32, "profiles": profiles}, launches
 
@@ -3342,24 +3402,31 @@ def main():
         entry["max_abs_err"] = max(entry["max_abs_err"], rec[err])
     NATIVE["decoders"], NATIVE["phase12_seconds"] = native_decoders(
         gt, device)
-    t64, t64_paths = tile64_slice(
-        gt, _build, cr, cs, kb, splats, cam, cfg,
-        {"render": {k: r["median_ms"] for k, r in runs.items()},
-         "train_step": {k: r["median_ms"] for k, r in steps.items()},
-         "render_2d": {"2d-mixed": run2d["median_ms"]},
-         "train_step_2d": {"2d-mixed": step2d["median_ms"]}})
-    for i, entry in enumerate((b1, b2, b3, b4, b5)):
-        rec = t64["kernels"][entry["name"]]
-        rec["launches"] = {p: n[i] for p, n in t64_paths.items()}
-        rec["ms_tile_32"] = entry["ms"]
-        entry["per_tile"] = {str(TILE_64): rec}
-        entry["max_abs_err"] = max(entry["max_abs_err"], rec["max_abs_err"])
-        paths = {p: n[i] for p, n in t64_paths.items() if n[i]}
-        entry["launches"] += sum(paths.values())
-        entry["launches_by_path"].update(paths)
-    b1["tile_64_median_ms"] = t64["median_ms"]
-    b1["tile_64_profiles"] = t64["profiles"]
-    b1["tile_64_seconds"] = t64["seconds"]
+    t32 = {"render": {k: r["median_ms"] for k, r in runs.items()},
+           "train_step": {k: r["median_ms"] for k, r in steps.items()},
+           "render_2d": {"2d-mixed": run2d["median_ms"]},
+           "train_step_2d": {"2d-mixed": step2d["median_ms"]}}
+    for entry in (b1, b2, b3, b4, b5):
+        entry["per_tile"] = {}
+    for side, every, phase in ((TILE_64, T64_PLAIN_EVERY, 13),
+                               (TILE_128, T128_PLAIN_EVERY, 14)):
+        res, paths_t = tile_slice(gt, _build, cr, cs, kb, splats, cam, cfg,
+                                  t32, side, every, phase)
+        for i, entry in enumerate((b1, b2, b3, b4, b5)):
+            rec = res["kernels"][entry["name"]]
+            rec["launches"] = {p: n[i] for p, n in paths_t.items()}
+            rec["ms_tile_32"] = entry["ms"]
+            if side != TILE_64:
+                rec["ms_tile_64"] = entry["per_tile"][str(TILE_64)]["ms"]
+            entry["per_tile"][str(side)] = rec
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       rec["max_abs_err"])
+            paths = {p: n[i] for p, n in paths_t.items() if n[i]}
+            entry["launches"] += sum(paths.values())
+            entry["launches_by_path"].update(paths)
+        b1[f"tile_{side}_median_ms"] = res["median_ms"]
+        b1[f"tile_{side}_profiles"] = res["profiles"]
+        b1[f"tile_{side}_seconds"] = res["seconds"]
     log(json.dumps({"native": NATIVE}))
     log(json.dumps({"kernels": [b1, b2, b3, b4, b5]}))
     log(json.dumps({"ok": True, "device": {

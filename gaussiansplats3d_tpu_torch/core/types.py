@@ -210,8 +210,8 @@ class RenderConfig:
             raise ValueError(
                 "record_precision must be 'f32', 'mixed' or 'packed'")
         # the JAX package divides by the side (tiles_x); any side >= 1
-        # renders, and the CUDA compositors take sides up to 64
-        # (render/cuda_rasterize.py: MAX_CUDA_TILE)
+        # renders, on the CUDA compositors too (above 64 one block walks
+        # the tile's 32 x 32 sub-tiles, csrc/warp_cull.cuh)
         if self.tile_size < 1:
             raise ValueError("tile_size must be >= 1")
 

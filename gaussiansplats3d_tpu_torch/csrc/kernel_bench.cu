@@ -15,9 +15,12 @@
 // (warp_cull::pixel; pixels past the tile's edge are not held and cast no
 // vote), and for a side of 33-64 a thread-block cluster of 4 blocks of 512
 // threads, one a 32 x 32 quadrant (warp_cull.cuh: the layout), whose vote
-// is taken over the cluster (warp_cull::cluster_any).  The cluster is the
-// template parameter Q (1 or 4), chosen by the side: the Q = 1
-// instantiation is the tile-32 kernel.  The tile's pair window [start,
+// is taken over the cluster (warp_cull::cluster_any), and for a side of 65
+// or more one block that walks the tile's 32 x 32 sub-tiles, as B1 does
+// (warp_cull.cuh: the walk; each variant's own vote points, so exit_k per
+// variant is the whole tile's).  The layout is the template parameter Q
+// (1, kQuads = 4 or kWalk), chosen by the side: the Q = 1 instantiation is
+// the tile-32 kernel.  The tile's pair window [start,
 // start + count) is read in floor-aligned 128-pair chunks; for each
 // chunk:
 //
@@ -105,8 +108,8 @@ variant_kernel(const float* __restrict__ rec, long long s_total,
                int* __restrict__ exit_k) {
   __shared__ float srec[kFields][kChunk];
 
-  int quad;
-  const int tile = warp_cull::tile_of_block<Q>(quad);
+  int rank;
+  const int tile = warp_cull::tile_of_block<Q>(rank);
   const int tid = threadIdx.x;
   const int nthreads = blockDim.x;
   const int lane = tid & 31;
@@ -118,153 +121,168 @@ variant_kernel(const float* __restrict__ rec, long long s_total,
   const long long p = static_cast<long long>(ts) * ts;
 
   if (V == kGridOnly) {
+    auto zero = [&](int quad, int) {
 #pragma unroll
-    for (int q = 0; q < kPix; ++q) {
-      int ix, iy;
-      warp_cull::pixel<Q>(ts, warp, q, lane, ix, iy, quad);
-      if (!warp_cull::inside(ts, ix, iy)) continue;
-      const long long out = static_cast<long long>(tile) * p + iy * ts + ix;
+      for (int q = 0; q < kPix; ++q) {
+        int ix, iy;
+        warp_cull::pixel<Q>(ts, warp, q, lane, ix, iy, quad);
+        if (!warp_cull::inside(ts, ix, iy)) continue;
+        const long long out =
+            static_cast<long long>(tile) * p + iy * ts + ix;
 #pragma unroll
-      for (int c = 0; c < kNC; ++c) colors[out * kNC + c] = 0.0f;
-      t_out[out] = 0.0f;
-    }
-    if (tid == 0 && quad == 0) exit_k[tile] = num_chunks;
+        for (int c = 0; c < kNC; ++c) colors[out * kNC + c] = 0.0f;
+        t_out[out] = 0.0f;
+      }
+      return num_chunks;
+    };
+    warp_cull::walk_forward<Q>(ts, rank, zero);
+    if (tid == 0 && rank == 0) exit_k[tile] = num_chunks;
     return;
   }
 
   const int id = ids[tile];
   const float tx = static_cast<float>(id % tiles_x) * static_cast<float>(ts);
   const float ty = static_cast<float>(id / tiles_x) * static_cast<float>(ts);
-  const warp_cull::Rect rect = warp_cull::rect<Q>(tx, ty, ts, warp, quad);
-  const bool held = warp_cull::held<Q>(ts, quad, warp);
 
-  bool has[kPix];
-  float px[kPix], py[kPix];
-  float col[kPix][kNC];
-  float t[kPix];
-#pragma unroll
-  for (int q = 0; q < kPix; ++q) {
-    int ix, iy;
-    warp_cull::pixel<Q>(ts, warp, q, lane, ix, iy, quad);
-    has[q] = warp_cull::inside(ts, ix, iy);
-    // GL pixel centre: y up, rows flipped at assembly.
-    px[q] = tx + static_cast<float>(ix) + 0.5f;
-    py[q] = ty + static_cast<float>(iy) + 0.5f;
-#pragma unroll
-    for (int c = 0; c < kNC; ++c) col[q][c] = 0.0f;
-    t[q] = 1.0f;
-  }
-  // every block of the cluster has started before a vote writes to it
-  warp_cull::cluster_start<Q>();
+  // The pixels of quadrant or sub-tile `quad` (warp_cull::walk_forward),
+  // from chunk 0 until the vote stops them (at Q = kWalk not before chunk
+  // kmin); writes their outputs, returns the chunks composited.
+  auto part = [&](int quad, [[maybe_unused]] int kmin) {
+    const warp_cull::Rect rect = warp_cull::rect<Q>(tx, ty, ts, warp, quad);
+    const bool held = warp_cull::held<Q>(ts, quad, warp);
 
-  int k = 0;
-  while (k < num_chunks) {
-    const long long base = static_cast<long long>(start_chunk + k) * kChunk;
-    // every thread is done with the previous chunk: it has passed the vote
-    // or the barrier that stands in for it
-    for (int i = tid; i < kFields * kChunk; i += nthreads) {
-      const int f = i / kChunk;
-      const int l = i - f * kChunk;
-      const long long slot = base + l;
-      srec[f][l] = slot < s_total ? rec[f * s_total + slot] : 0.0f;
+    bool has[kPix];
+    float px[kPix], py[kPix];
+    float col[kPix][kNC];
+    float t[kPix];
+#pragma unroll
+    for (int q = 0; q < kPix; ++q) {
+      int ix, iy;
+      warp_cull::pixel<Q>(ts, warp, q, lane, ix, iy, quad);
+      has[q] = warp_cull::inside(ts, ix, iy);
+      // GL pixel centre: y up, rows flipped at assembly.
+      px[q] = tx + static_cast<float>(ix) + 0.5f;
+      py[q] = ty + static_cast<float>(iy) + 0.5f;
+#pragma unroll
+      for (int c = 0; c < kNC; ++c) col[q][c] = 0.0f;
+      t[q] = 1.0f;
     }
-    __syncthreads();
-    ++k;
-    bool alive = false;
-    if (V == kDmaOnly) {
-      // read after the barrier, so the staging is waited for and used
-      const float v = srec[0][0];
-#pragma unroll
-      for (int q = 0; q < kPix; ++q) {
-#pragma unroll
-        for (int c = 0; c < kNC; ++c) col[q][c] += v;
-        // T stays 1: the vote never stops the tile
-        alive |= has[q] && t[q] > exit_t;
-      }
-    } else {
-      const int lo = max(static_cast<int>(start - base), 0);
-      const int hi = min(static_cast<int>(start + count - base), kChunk);
-      warp_cull::Mask kept = warp_cull::cull(
-          srec[0], srec[1], srec[kNC + 6], srec[kNC + 7], lo, hi, rect, lane);
-      if (!held) kept = {};  // a patch past the tile's edge (Q > 1 only)
+    // every block of the cluster has started before a vote writes to it
+    warp_cull::cluster_start<Q>();
 
-      // the product of 1 - alpha over the chunk's earlier pairs, or for
-      // log_scan its log
-      float excl[kPix];
+    int k = 0;
+    while (k < num_chunks) {
+      const long long base = static_cast<long long>(start_chunk + k) * kChunk;
+      // every thread is done with the previous chunk: it has passed the vote
+      // or the barrier that stands in for it
+      for (int i = tid; i < kFields * kChunk; i += nthreads) {
+        const int f = i / kChunk;
+        const int l = i - f * kChunk;
+        const long long slot = base + l;
+        srec[f][l] = slot < s_total ? rec[f * s_total + slot] : 0.0f;
+      }
+      __syncthreads();
+      ++k;
+      bool alive = false;
+      if (V == kDmaOnly) {
+        // read after the barrier, so the staging is waited for and used
+        const float v = srec[0][0];
 #pragma unroll
-      for (int q = 0; q < kPix; ++q) excl[q] = V == kLogScan ? 0.0f : 1.0f;
+        for (int q = 0; q < kPix; ++q) {
+#pragma unroll
+          for (int c = 0; c < kNC; ++c) col[q][c] += v;
+          // T stays 1: the vote never stops the tile
+          alive |= has[q] && t[q] > exit_t;
+        }
+      } else {
+        const int lo = max(static_cast<int>(start - base), 0);
+        const int hi = min(static_cast<int>(start + count - base), kChunk);
+        warp_cull::Mask kept = warp_cull::cull(
+            srec[0], srec[1], srec[kNC + 6], srec[kNC + 7], lo, hi, rect, lane);
+        if (!held) kept = {};  // a patch past the tile's edge (Q != 1)
+
+        // the product of 1 - alpha over the chunk's earlier pairs, or for
+        // log_scan its log
+        float excl[kPix];
+#pragma unroll
+        for (int q = 0; q < kPix; ++q) excl[q] = V == kLogScan ? 0.0f : 1.0f;
 #pragma unroll 1
-      for (int j = 0; j < warp_cull::kWords; ++j) {
-        for (unsigned bits = warp_cull::word(kept, j); bits != 0;) {
-          const int l = j * 32 + warp_cull::pop_lowest(bits);
+        for (int j = 0; j < warp_cull::kWords; ++j) {
+          for (unsigned bits = warp_cull::word(kept, j); bits != 0;) {
+            const int l = j * 32 + warp_cull::pop_lowest(bits);
 #pragma unroll
-          for (int q = 0; q < kPix; ++q) {
-            gauss::Fragment f;
-            if (!has[q] || !gauss::fragment<kNC>(&srec[0][l], px[q], py[q],
-                                                 min_alpha, f)) {
-              continue;
-            }
-            float w;
-            if (V == kNoScan) {
-              w = f.alpha * t[q];
-            } else if (V == kLogScan) {
-              w = f.alpha * (expf(excl[q]) * t[q]);
-              excl[q] += log1pf(-f.alpha);
-            } else {
-              w = f.alpha * (excl[q] * t[q]);
-              excl[q] *= 1.0f - f.alpha;
-            }
-            if (V == kNoMatmul) {
-              // lane l's weight into channel l (l < 3), with constant
-              // indices so col stays in registers
-#pragma unroll
-              for (int c = 0; c < kNC; ++c) {
-                if (l == c) col[q][c] += w;
+            for (int q = 0; q < kPix; ++q) {
+              gauss::Fragment f;
+              if (!has[q] || !gauss::fragment<kNC>(&srec[0][l], px[q], py[q],
+                                                   min_alpha, f)) {
+                continue;
               }
-            } else {
+              float w;
+              if (V == kNoScan) {
+                w = f.alpha * t[q];
+              } else if (V == kLogScan) {
+                w = f.alpha * (expf(excl[q]) * t[q]);
+                excl[q] += log1pf(-f.alpha);
+              } else {
+                w = f.alpha * (excl[q] * t[q]);
+                excl[q] *= 1.0f - f.alpha;
+              }
+              if (V == kNoMatmul) {
+                // lane l's weight into channel l (l < 3), with constant
+                // indices so col stays in registers
 #pragma unroll
-              for (int c = 0; c < kNC; ++c) col[q][c] += w * srec[5 + c][l];
+                for (int c = 0; c < kNC; ++c) {
+                  if (l == c) col[q][c] += w;
+                }
+              } else {
+#pragma unroll
+                for (int c = 0; c < kNC; ++c) col[q][c] += w * srec[5 + c][l];
+              }
             }
           }
         }
-      }
 #pragma unroll
-      for (int q = 0; q < kPix; ++q) {
-        if (V == kLogScan) {
-          t[q] = fmaxf(t[q] * expf(excl[q]), t_floor);
-        } else if (V != kNoScan) {
-          t[q] = fmaxf(t[q] * excl[q], t_floor);
+        for (int q = 0; q < kPix; ++q) {
+          if (V == kLogScan) {
+            t[q] = fmaxf(t[q] * expf(excl[q]), t_floor);
+          } else if (V != kNoScan) {
+            t[q] = fmaxf(t[q] * excl[q], t_floor);
+          }
+          alive |= has[q] && t[q] > exit_t;
         }
-        alive |= has[q] && t[q] > exit_t;
       }
-    }
-    // The vote, block-uniform (every thread has the same k): a pixel past
-    // the tile's edge has none.  Without it, a plain barrier (over a
-    // cluster, a cluster barrier).
-    if (V == kNoExit || (V == kExitEvery4 && k % 4 != 0)) {
-      if constexpr (Q == 1) {
-        __syncthreads();
+      // The vote, block-uniform (every thread has the same k): a pixel past
+      // the tile's edge has none.  Without it, a plain barrier (over a
+      // cluster, a cluster barrier).
+      if (V == kNoExit || (V == kExitEvery4 && k % 4 != 0)) {
+        if constexpr (Q == warp_cull::kQuads) {
+          warp_cull::cg::this_cluster().sync();
+        } else {
+          __syncthreads();
+        }
+      } else if constexpr (Q == 1) {
+        if (!__syncthreads_or(alive)) break;
+      } else if constexpr (Q == warp_cull::kQuads) {
+        if (!warp_cull::cluster_any(alive, k)) break;
       } else {
-        warp_cull::cg::this_cluster().sync();
+        if (!__syncthreads_or(alive) && k >= kmin) break;
       }
-    } else if constexpr (Q == 1) {
-      if (!__syncthreads_or(alive)) break;
-    } else {
-      if (!warp_cull::cluster_any(alive, k)) break;
     }
-  }
 
 #pragma unroll
-  for (int q = 0; q < kPix; ++q) {
-    if (!has[q]) continue;
-    int ix, iy;
-    warp_cull::pixel<Q>(ts, warp, q, lane, ix, iy, quad);
-    const long long out = static_cast<long long>(tile) * p + iy * ts + ix;
+    for (int q = 0; q < kPix; ++q) {
+      if (!has[q]) continue;
+      int ix, iy;
+      warp_cull::pixel<Q>(ts, warp, q, lane, ix, iy, quad);
+      const long long out = static_cast<long long>(tile) * p + iy * ts + ix;
 #pragma unroll
-    for (int c = 0; c < kNC; ++c) colors[out * kNC + c] = col[q][c];
-    t_out[out] = t[q];
-  }
-  if (tid == 0 && quad == 0) exit_k[tile] = k;
+      for (int c = 0; c < kNC; ++c) colors[out * kNC + c] = col[q][c];
+      t_out[out] = t[q];
+    }
+    return k;
+  };
+  const int k = warp_cull::walk_forward<Q>(ts, rank, part);
+  if (tid == 0 && rank == 0) exit_k[tile] = k;
 }
 
 template <int Q>
@@ -296,8 +314,7 @@ cudaError_t launch(int variant, int num_tiles, int ts, cudaStream_t s,
 
 // Launches variant `variant` (the Variant enum) of B5 on `stream` over
 // num_tiles tiles and returns the launch's error or cudaGetLastError() (0
-// when the launch was accepted).  A side above 64 is refused
-// (cudaErrorInvalidValue).
+// when the launch was accepted).
 extern "C" int kernel_bench_variant(int variant, const float* rec,
                                     long long s_total, const int* starts,
                                     const int* counts, const int* ids,
@@ -305,22 +322,16 @@ extern "C" int kernel_bench_variant(int variant, const float* rec,
                                     float min_alpha, float t_floor,
                                     float exit_t, float* colors, float* t_out,
                                     int* exit_k, void* stream) {
-  const int blocks = warp_cull::blocks_per_tile(ts);
-  if (blocks == 0 || variant < kFull || variant > kGridOnly) {
+  if (ts < 1 || variant < kFull || variant > kGridOnly) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (num_tiles == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      blocks == 1
-          ? launch<1>(variant, num_tiles, ts, s, rec, s_total, starts,
-                      counts, ids, tiles_x, min_alpha, t_floor, exit_t,
-                      colors, t_out, exit_k)
-          : launch<warp_cull::kQuads>(variant, num_tiles, ts, s, rec,
-                                      s_total, starts, counts, ids, tiles_x,
-                                      min_alpha, t_floor, exit_t, colors,
-                                      t_out, exit_k);
-  return static_cast<int>(err);
+  return static_cast<int>(warp_cull::by_layout(ts, [&](auto q) {
+    return launch<decltype(q)::value>(variant, num_tiles, ts, s, rec, s_total,
+                                      starts, counts, ids, tiles_x, min_alpha,
+                                      t_floor, exit_t, colors, t_out, exit_k);
+  }));
 }
 
 // cudaOccupancyMaxActiveClusters of B5's cluster instantiation of `full`

@@ -1,24 +1,30 @@
 // Per-warp pair cull and pixel layout, shared by the compositors B1-B4 of
 // the port (composite_fwd.cu, composite_bwd.cu, surfel_fwd.cu,
 // surfel_bwd.cu) and the ablation bench B5 (kernel_bench.cu), the
-// per-pair warp reduction of the backward ones (B2, B4), and the cluster
-// of four blocks that holds a tile of side 33-64.
+// per-pair warp reduction of the backward ones (B2, B4), the cluster of
+// four blocks that holds a tile of side 33-64, and the walk of one block
+// over the 32 x 32 sub-tiles of a tile of side 65 or more.
 //
-// The layout.  A tile of side ts <= 32 is one block of warps(ts) warps
-// (Q = 1).  A tile of side 33..64 (kMaxTile) is a thread-block cluster of
-// kQuads = 4 blocks (Q = 4): block r of the cluster (cluster.block_rank())
-// holds the 32 x 32 quadrant (r % 2, r / 2), columns [32 (r % 2),
-// min(32 (r % 2) + 32, ts)) and rows [32 (r / 2), min(32 (r / 2) + 32,
-// ts)), as a tile-32 block holds its tile: 16 warps, each on an 8 x 8
-// patch.  The quadrants start at multiples of 32, so
-// their patches inside the tile are those of an 8 x 8 patching of the
-// whole tile (the mirror's warp_rects).  A launch has one block size, so a
-// narrow quadrant (8 wide at side 40) keeps its 16 warps: a warp whose
-// patch lies wholly past the tile's edge holds no pixel and keeps an empty
-// mask (held()), but it stages and reaches every barrier.  Pixels keep the
-// whole tile's coordinates, p = iy * ts + ix.  A side above 64 would need 9
-// blocks or more, past the portable cluster size of 8: the entries refuse
-// it (blocks_per_tile() == 0).
+// The layout: the kernels' template parameter Q, chosen by the side alone
+// (layout()).  A tile of side ts <= 32 is one block of warps(ts) warps (Q
+// = 1).  A tile of side 33..64 (kMaxQuadTile) is a thread-block cluster of
+// kQuads = 4 blocks (Q = kQuads): block r of the cluster
+// (cluster.block_rank()) holds the 32 x 32 quadrant (r % 2, r / 2),
+// columns [32 (r % 2), min(32 (r % 2) + 32, ts)) and rows [32 (r / 2),
+// min(32 (r / 2) + 32, ts)), as a tile-32 block holds its tile: 16 warps,
+// each on an 8 x 8 patch.  A tile of side 65 or more is one block of 16
+// warps (Q = kWalk) that walks its g x g sub-tiles of 32 x 32, g =
+// ceil(ts / 32), in row-major order: on sub-tile s, columns [32 (s % g),
+// min(32 (s % g) + 32, ts)) and the same rows of s / g, its warps hold the
+// patches a cluster block holds on a quadrant (the quadrant geometry with
+// s % g, s / g for r % 2, r / 2).  The quadrants and sub-tiles start at
+// multiples of 32, so their patches inside the tile are those of an 8 x 8
+// patching of the whole tile (the mirror's warp_rects).  A launch has one
+// block size, so a narrow quadrant or sub-tile (8 wide at side 40) keeps
+// its 16 warps: a warp whose patch lies wholly past the tile's edge holds
+// no pixel and keeps an empty mask (held()), but it stages and reaches
+// every barrier.  Pixels keep the whole tile's coordinates, p = iy * ts +
+// ix.
 //
 // The cluster.  The forward kernels (B1, B3, B5) stop a tile once no pixel
 // of any of its blocks is alive: each block takes __syncthreads_or, writes
@@ -28,6 +34,22 @@
 // per-chunk sums: block r sums lanes [32 r, 32 r + 32) of every block's
 // sacc through DSMEM and writes those slots (cluster_write), so each slot
 // is still written once.
+//
+// The walk.  A forward kernel stops a tile after the first chunk at which
+// no pixel of the whole tile is alive.  T never grows, so that chunk is
+// the largest of the sub-tiles' own exit chunks, K = max_s k_s, and each
+// pixel's arithmetic depends on no other pixel.  walk_forward runs the
+// sub-tiles in order, each voting over its own pixels (__syncthreads_or)
+// but only from the tile's exit so far on, and writes their outputs.  The
+// sub-tiles before the last one that raised that exit stopped short of K,
+// and only they: they run again from chunk 0 to K and overwrite their
+// outputs.  Every pixel then took K chunks, the sequence of adds of one
+// whole-tile vote.  The backward ones (B2, B4)
+// replay the tile's chunks from its exit_k for each sub-tile in order, as
+// a tile-32 block does, and walk_write adds each chunk's sums into the
+// pair's slots: sub-tile 0 writes them, the later ones add theirs.  A slot
+// lies in one tile's window, so only this block touches it, in an order
+// the loop and the block's barriers fix: no global atomics, no scratch.
 //
 // The cull.  A warp holds an 8 x 8 patch of its tile (pixel()), whose
 // pixel centres lie in a rectangle (Rect).  Once a 128-pair chunk is
@@ -56,6 +78,8 @@
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace warp_cull {
 
@@ -86,10 +110,13 @@ constexpr int kPatch = 8;
 constexpr int kPatchRowsPerQ = 32 / kPatch;  // rows of one pixel a lane
 static_assert(kPatchRowsPerQ * kPix == kPatch, "square patches");
 
-// A cluster's quadrants: the side of each, how many, the largest tile.
+// A cluster's quadrants: the side of each, how many, the largest tile of
+// a cluster; above it a block walks sub-tiles of side kQuadSide (Q =
+// kWalk).
 constexpr int kQuadSide = 32;
 constexpr int kQuads = 4;
-constexpr int kMaxTile = 2 * kQuadSide;
+constexpr int kMaxQuadTile = 2 * kQuadSide;
+constexpr int kWalk = 0;
 
 // warps that cover a ts x ts tile
 __host__ __device__ inline int warps(int ts) {
@@ -97,10 +124,17 @@ __host__ __device__ inline int warps(int ts) {
   return across * across;
 }
 
-// Blocks that hold a tile of side ts: 1 up to 32, kQuads up to kMaxTile,
-// 0 above (refused).
-__host__ __device__ inline int blocks_per_tile(int ts) {
-  return ts <= kQuadSide ? 1 : ts <= kMaxTile ? kQuads : 0;
+// The layout (Q) of a tile of side ts: 1 block up to 32, a cluster of
+// kQuads up to kMaxQuadTile, one block walking its sub-tiles (kWalk)
+// above.
+__host__ __device__ inline int layout(int ts) {
+  return ts <= kQuadSide ? 1 : ts <= kMaxQuadTile ? kQuads : kWalk;
+}
+
+// The 32 x 32 sub-tiles a Q = kWalk block walks: g x g, g = ceil(ts / 32).
+__host__ __device__ inline int sub_tiles(int ts) {
+  const int g = (ts + kQuadSide - 1) / kQuadSide;
+  return g * g;
 }
 
 // Threads of a block of a tile of side ts (whole warps: the cull's
@@ -112,7 +146,8 @@ __host__ __device__ inline int threads(int ts) {
 // Column c0 and row r0 in the tile of warp `warp`'s patch corner.  Q = 1:
 // the block holds the whole tile, ceil(ts / 8)^2 patches row-major; Q =
 // kQuads: block `quad` of the cluster holds its quadrant, 4 x 4 patches
-// row-major from the quadrant's corner.
+// row-major from the quadrant's corner; Q = kWalk: the block is on
+// sub-tile `quad`, 4 x 4 patches row-major from the sub-tile's corner.
 template <int Q>
 __device__ __forceinline__ void patch(int ts, int quad, int warp, int& c0,
                                       int& r0) {
@@ -120,15 +155,21 @@ __device__ __forceinline__ void patch(int ts, int quad, int warp, int& c0,
     const int across = (ts + kPatch - 1) / kPatch;
     c0 = warp % across * kPatch;
     r0 = warp / across * kPatch;
-  } else {
+  } else if constexpr (Q == kQuads) {
     constexpr int across = kQuadSide / kPatch;
     c0 = quad % 2 * kQuadSide + warp % across * kPatch;
     r0 = quad / 2 * kQuadSide + warp / across * kPatch;
+  } else {
+    constexpr int across = kQuadSide / kPatch;
+    const int g = (ts + kQuadSide - 1) / kQuadSide;
+    c0 = quad % g * kQuadSide + warp % across * kPatch;
+    r0 = quad / g * kQuadSide + warp / across * kPatch;
   }
 }
 
 // column and row in the tile of pixel q of `lane` in warp `warp` (of
-// cluster block `quad` where Q = kQuads)
+// cluster block `quad` where Q = kQuads, on sub-tile `quad` where Q =
+// kWalk)
 template <int Q = 1>
 __device__ __forceinline__ void pixel(int ts, int warp, int q, int lane,
                                       int& ix, int& iy, int quad = 0) {
@@ -143,8 +184,9 @@ __device__ __forceinline__ bool inside(int ts, int ix, int iy) {
 }
 
 // Whether warp `warp`'s patch holds a pixel of the tile: always with Q =
-// 1; with Q = kQuads not where the patch lies wholly past the tile's edge
-// (a narrow quadrant).  Such a warp must keep an empty mask.
+// 1; with Q = kQuads or kWalk not where the patch lies wholly past the
+// tile's edge (a narrow quadrant or sub-tile).  Such a warp must keep an
+// empty mask.
 template <int Q>
 __device__ __forceinline__ bool held(int ts, int quad, int warp) {
   if constexpr (Q == 1) {
@@ -294,10 +336,11 @@ __device__ __forceinline__ void reduce_add(const float (&v)[N], int lane,
 }
 
 // The tile and, with Q = kQuads, the block's quadrant (its rank in the
-// cluster); a cluster's kQuads blocks are consecutive in x.
+// cluster); a cluster's kQuads blocks are consecutive in x.  Q = 1 and
+// kWalk: one block a tile, quad 0.
 template <int Q>
 __device__ __forceinline__ int tile_of_block(int& quad) {
-  if constexpr (Q == 1) {
+  if constexpr (Q != kQuads) {
     quad = 0;
     return blockIdx.x;
   } else {
@@ -310,7 +353,7 @@ __device__ __forceinline__ int tile_of_block(int& quad) {
 // peer's shared memory: every block of the cluster has then started.
 template <int Q>
 __device__ __forceinline__ void cluster_start() {
-  if constexpr (Q > 1) cg::this_cluster().sync();
+  if constexpr (Q == kQuads) cg::this_cluster().sync();
 }
 
 // The forward kernels' exit vote over a cluster, after chunk k (k counts
@@ -370,15 +413,91 @@ __device__ __forceinline__ void cluster_write(const float* sacc,
   cluster.sync();
 }
 
+// One sub-tile pass of walk_forward, kept out of line.  Inlined into the
+// walk's loop, the surfel forward (B3) came out wrong on an H100 with nvcc
+// 12.9 at ptxas -O1 and above (log T off, the tile's exit late); out of
+// line, or at -Xptxas -O0, it matched its plain version at every side.
+// The call passes the pass's captures through local memory.
+template <typename Part>
+__device__ __noinline__ int walk_pass(Part& part, int sub, int kmin) {
+  return part(sub, kmin);
+}
+
+// A forward kernel's (B1, B3, B5) pass over a tile: part(quad, kmin)
+// composites the pixels of quadrant or sub-tile `quad` from chunk 0,
+// writes their outputs and returns the chunks it composited.  At Q = 1
+// and kQuads one call, part(quad, 0), whose vote ignores kmin.  At Q =
+// kWalk (warp_cull.cuh: the walk) part must stop after the first of its
+// votes at or past chunk kmin at which none of its pixels is alive; each
+// sub-tile runs with kmin the largest count so far, K, and the sub-tiles
+// before the last one that raised K run again with kmin = K (their own
+// exits lie before K, so they stop at K).  Returns the tile's exit_k.
+// Every thread of the block must call it.
+template <int Q, typename Part>
+__device__ __forceinline__ int walk_forward(int ts, int quad, Part&& part) {
+  if constexpr (Q != kWalk) {
+    return part(quad, 0);
+  } else {
+    const int subs = sub_tiles(ts);
+    int kk = 0, redo = 0;
+    for (int i = 0; i < subs + redo; ++i) {
+      const int sub = i < subs ? i : i - subs;
+      const int k = walk_pass(part, sub, kk);
+      if (i < subs && k > kk) {
+        kk = k;
+        redo = sub;
+      }
+    }
+    return kk;
+  }
+}
+
+// A backward kernel's (B2, B4) pass over a tile: part(quad, first) replays
+// the tile's chunks for the pixels of quadrant or sub-tile `quad`; first
+// says whether its sums are the first written to the window's slots.  At
+// Q = 1 and kQuads one call; at Q = kWalk one a sub-tile, in order.
+template <int Q, typename Part>
+__device__ __forceinline__ void walk_backward(int ts, int quad,
+                                              Part&& part) {
+  if constexpr (Q != kWalk) {
+    part(quad, true);
+  } else {
+    const int subs = sub_tiles(ts);
+    for (int sub = 0; sub < subs; ++sub) part(sub, sub == 0);
+  }
+}
+
+// The backward kernels' write of one chunk's sums at Q = kWalk: sacc
+// [NT][kAccStride] holds the current sub-tile's sums of the chunk's lanes;
+// those of the window [lo, hi) go to grad [NT, s_total] at slot base +
+// lane, written by the first sub-tile and added by the later ones.  A
+// thread reads back only what it wrote itself for the earlier sub-tiles
+// (the same i), so one barrier before (the sums are complete) suffices.
+// Every thread of the block must call it.
+template <int NT>
+__device__ __forceinline__ void walk_write(const float* sacc,
+                                           float* __restrict__ grad,
+                                           long long s_total, long long base,
+                                           int lo, int hi, bool first) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < NT * kChunk; i += blockDim.x) {
+    const int f = i / kChunk;
+    const int l = i - f * kChunk;
+    if (l < lo || l >= hi) continue;
+    float* g = &grad[f * s_total + base + l];
+    *g = first ? sacc[f * kAccStride + l] : *g + sacc[f * kAccStride + l];
+  }
+}
+
 // Launches `kernel` over num_tiles tiles of side ts on stream s: with Q =
-// 1 one block a tile, as <<<>>> with no cluster attribute; with Q = kQuads
-// kQuads blocks a tile, a cluster each (cudaLaunchKernelEx with
+// 1 or kWalk one block a tile, as <<<>>> with no cluster attribute; with Q
+// = kQuads kQuads blocks a tile, a cluster each (cudaLaunchKernelEx with
 // cudaLaunchAttributeClusterDimension).  Returns the launch's error, else
 // cudaGetLastError().
 template <int Q, typename... Params, typename... Args>
 cudaError_t launch_tiles(void (*kernel)(Params...), int num_tiles, int ts,
                          cudaStream_t s, Args... args) {
-  if constexpr (Q == 1) {
+  if constexpr (Q != kQuads) {
     kernel<<<dim3(num_tiles), dim3(threads(ts)), 0, s>>>(args...);
     return cudaGetLastError();
   } else {
@@ -400,6 +519,20 @@ cudaError_t launch_tiles(void (*kernel)(Params...), int num_tiles, int ts,
   }
 }
 
+// launch(std::integral_constant<int, Q>{}) for the layout Q of a tile of
+// side ts (layout()): the C entries' dispatch to their instantiations.
+template <typename Launch>
+cudaError_t by_layout(int ts, Launch&& launch) {
+  switch (layout(ts)) {
+    case 1:
+      return launch(std::integral_constant<int, 1>{});
+    case kQuads:
+      return launch(std::integral_constant<int, kQuads>{});
+    default:
+      return launch(std::integral_constant<int, kWalk>{});
+  }
+}
+
 // cudaOccupancyMaxActiveClusters of the kQuads-block instantiation
 // `kernel` at 512 threads a block: how many of its clusters the card holds
 // at once (0 if none fits).
@@ -407,7 +540,7 @@ template <typename... Params>
 cudaError_t max_clusters(void (*kernel)(Params...), int* clusters) {
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(kQuads);
-  config.blockDim = dim3(threads(kMaxTile));
+  config.blockDim = dim3(threads(kMaxQuadTile));
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = kQuads;

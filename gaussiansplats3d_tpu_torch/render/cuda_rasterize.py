@@ -10,7 +10,11 @@ MXU scan, no tiles per step): one block per tile of up to 512 threads,
 each holding 2 pixels, a warp on an 8 x 8 patch of the tile
 (:data:`WARP_PATCH`), for sides up to 32; a tile of side 33-64 is a
 thread-block cluster of 4 such blocks, one a 32 x 32 quadrant, that vote
-on the tile's exit through distributed shared memory.  The tile's records
+on the tile's exit through distributed shared memory; a tile of side 65 or
+more is one block of 512 threads that walks its 32 x 32 sub-tiles, each
+with its own vote from the tile's exit so far on, and runs the sub-tiles
+that stopped short again to the tile's exit (``csrc/warp_cull.cuh``: the
+walk), so every pixel takes the whole tile's chunks.  The tile's records
 are staged 128 pairs at a time in shared memory, each warp culls the chunk
 against the rectangle of its pixels (``csrc/warp_cull.cuh``;
 :func:`warp_keep` is its plain mirror) and walks the kept pairs in order,
@@ -29,9 +33,11 @@ died in the chunk: both kernels evaluate alpha with
 nvcc cannot contract); each pair's gradient terms are summed over the warp
 by one reduce-scatter and over the block in shared memory (over a tile's
 cluster of 4 blocks through distributed shared memory, each block summing
-32 of the chunk's lanes), and written once to the pair's slot (a slot lies
-in one tile's window only, so no global atomics and no read-modify-write
-of shared boundary chunks).
+32 of the chunk's lanes; above 64 the block replays each sub-tile in turn
+and adds its sums into the slots the first one wrote), and written to the
+pair's slot by the tile's own block only (a slot lies in one tile's
+window, so no global atomics and no read-modify-write of shared boundary
+chunks).
 
 **What bounds them on the H100.**  Each record is read once per tile that
 holds it (44-48 bytes a pair), while each pair may be evaluated at every
@@ -39,12 +45,10 @@ pixel of the tile until the tile exits (1024 evaluations at tile size 32):
 arithmetic, not memory, bounds both.  Both walk only the pairs whose box
 reaches a warp's patch, read a pair's fields once for a lane's 2 pixels,
 and test the cheap support box before the ``exp``; B2 skips the replay of
-B1's sum where it can and reduces a pair's terms in one pass.  Any tile
-side up to :data:`MAX_CUDA_TILE` (64) runs: pixels past the tile's edge
+B1's sum where it can and reduces a pair's terms in one pass.  Every
+tile side >= 1 runs, as in the JAX package: pixels past the tile's edge
 are masked, and a warp whose patch lies wholly past it holds none and
-culls every pair.  A side above 64 would need a cluster of 9 or more
-blocks, past the portable cluster size of 8, and the CUDA wrappers refuse
-it (:func:`check_cuda_launch`); the plain versions take any side.
+culls every pair.
 
 **Plain versions** (:func:`composite_fwd_torch`,
 :func:`composite_bwd_torch`): the same functions in PyTorch, groups of
@@ -59,6 +63,7 @@ raise.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -79,10 +84,9 @@ _GROUP_SIZE = 64
 # The side of the square patch of pixels each warp of B1-B4 holds
 # (csrc/warp_cull.cuh: kPatch); see warp_rects.
 WARP_PATCH = 8
-# The largest tile side B1-B5 take (csrc/warp_cull.cuh: kMaxTile): a side
-# of 33-64 is a cluster of 4 blocks of 32 x 32 pixels; a side above 64
-# needs 9 blocks or more, past the portable cluster size of 8.
-MAX_CUDA_TILE = 64
+# The side of the quadrants of a tile of 33-64 and of the sub-tiles a
+# block walks above 64 (csrc/warp_cull.cuh: kQuadSide).
+SUB_TILE = 32
 
 launches = 0
 """Launches of the CUDA kernel B1 made by :func:`composite_fwd` (the plain
@@ -125,16 +129,9 @@ def _check_inputs(records, starts, counts, ids, cfg: RenderConfig,
         raise ValueError("records capacity must stay below 2^31")
 
 
-def check_cuda_launch(records, cfg: RenderConfig, name: str):
+def check_cuda_launch(records, name: str):
     """Raise unless a CUDA compositor (B1-B5) can launch on these inputs:
-    the tile side at most :data:`MAX_CUDA_TILE`, the records on a CUDA
-    device."""
-    if cfg.tile_size > MAX_CUDA_TILE:
-        raise ValueError(
-            f"{name}: tile_size {cfg.tile_size} > {MAX_CUDA_TILE}: the CUDA "
-            f"compositors hold a tile of side 33-{MAX_CUDA_TILE} as a cluster"
-            f" of 4 blocks of 32 x 32 pixels, and a larger side needs 9 "
-            f"blocks or more, past the portable cluster size of 8")
+    the records on a CUDA device (every tile side >= 1 launches)."""
     if not records.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors")
 
@@ -170,7 +167,7 @@ def composite_fwd_cuda(records, tile_starts, tile_counts, tile_ids,
     all on one CUDA device; returns (chans, logt, exit_k)."""
     global launches
     _check_inputs(records, tile_starts, tile_counts, tile_ids, cfg)
-    check_cuda_launch(records, cfg, "composite_fwd_cuda")
+    check_cuda_launch(records, "composite_fwd_cuda")
     fn = _kernel()
     nf, s = records.shape
     nc = nf - 8
@@ -222,10 +219,12 @@ def warp_rects(cfg: RenderConfig):
     corner: ``[W, 4]`` float32 (x0, x1, y0, y1), one row per warp.  The
     warps tile the tile with :data:`WARP_PATCH`-square patches, row-major,
     clipped to it.  At sides 33-64 the kernels hold the tile as four 32 x
-    32 quadrants, each patched from its corner; the quadrants start at
-    multiples of 32, so their patches inside the tile are these same
-    rectangles (the order differs, the set does not), and a patch wholly
-    past the tile's edge holds no pixel and keeps no pair."""
+    32 quadrants, and above 64 one block walks its ceil(side / 32)^2
+    sub-tiles of :data:`SUB_TILE` x :data:`SUB_TILE`, each patched from
+    its corner; the quadrants and sub-tiles start at multiples of 32, so their
+    patches inside the tile are these same rectangles (the order differs,
+    the set does not), and a patch wholly past the tile's edge holds no
+    pixel and keeps no pair."""
     ts = cfg.tile_size
     across = -(-ts // WARP_PATCH)
     w = torch.arange(across * across)
@@ -233,6 +232,37 @@ def warp_rects(cfg: RenderConfig):
     c1 = torch.clamp(c0 + WARP_PATCH, max=ts) - 1
     r1 = torch.clamp(r0 + WARP_PATCH, max=ts) - 1
     return torch.stack([c0, c1, r0, r1], dim=1).to(torch.float32) + 0.5
+
+
+def walk_exits(fwd_torch, records, tile_starts, tile_counts, tile_ids,
+               cfg: RenderConfig):
+    """The walk's bookkeeping at a side of 65 or more that is a multiple
+    of :data:`SUB_TILE` (``csrc/warp_cull.cuh``: the walk), from a plain
+    forward (``composite_fwd_torch`` or the surfel one): each sub-tile's
+    own exit chunk, from its pixels composited alone as a tile of side 32
+    at the same place over the same window, and how many sub-tiles run a
+    second pass, those before the first whose own exit is the tile's.
+    Returns ``(k_sub [T, g * g] int32, second [T] int64)``, sub-tiles in
+    the kernels' row-major order."""
+    ts = cfg.tile_size
+    if ts <= 2 * SUB_TILE or ts % SUB_TILE:
+        raise ValueError(f"walk_exits needs a side above {2 * SUB_TILE} that "
+                         f"is a multiple of {SUB_TILE}, got {ts}")
+    g = ts // SUB_TILE
+    # width: every tile of the row whole, so tiles_x of side 32 is g times
+    cfg32 = dataclasses.replace(cfg, tile_size=SUB_TILE,
+                                width=cfg.tiles_x * ts)
+    ids = tile_ids.long()
+    col, row = ids % cfg.tiles_x, torch.div(ids, cfg.tiles_x,
+                                            rounding_mode="floor")
+    sub = torch.arange(g * g, device=ids.device)
+    ids32 = ((col[:, None] * g + sub % g)
+             + (row[:, None] * g + torch.div(sub, g, rounding_mode="floor"))
+             * cfg32.tiles_x).reshape(-1).to(torch.int32)
+    _, _, k = fwd_torch(records, tile_starts.repeat_interleave(g * g),
+                        tile_counts.repeat_interleave(g * g), ids32, cfg32)
+    k_sub = k.view(-1, g * g)
+    return k_sub, torch.argmax(k_sub, dim=1)
 
 
 def warp_keep(x, y, rx, ry, x0, x1, y0, y1):
@@ -446,7 +476,7 @@ def composite_bwd_cuda(records, tile_starts, tile_counts, tile_ids, logt,
     global bwd_launches
     _check_bwd_inputs(records, tile_starts, tile_counts, tile_ids, logt,
                       exit_k, gchans, cfg)
-    check_cuda_launch(records, cfg, "composite_bwd_cuda")
+    check_cuda_launch(records, "composite_bwd_cuda")
     fn = _bwd_kernel()
     nf, s = records.shape
     t = tile_starts.shape[0]

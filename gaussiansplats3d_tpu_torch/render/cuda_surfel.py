@@ -19,8 +19,9 @@ B3, in B1's layout: one block per tile of up to 512 threads, each holding
 2 pixels, a warp on an 8 x 8 patch (``cuda_rasterize.WARP_PATCH``), for
 sides up to 32, and for sides 33-64 a thread-block cluster of 4 such
 blocks, one a 32 x 32 quadrant, voting on the tile's exit through
-distributed shared memory (sides above 64 are refused,
-``cuda_rasterize.check_cuda_launch``); the tile's records staged 128 at a
+distributed shared memory, and for sides of 65 or more one block that
+walks the tile's 32 x 32 sub-tiles as B1 does (``csrc/warp_cull.cuh``: the
+walk), so every side >= 1 launches; the tile's records staged 128 at a
 time in shared memory, floor-aligned 128-pair chunk windows, each chunk
 culled per warp (``csrc/warp_cull.cuh``) and the kept pairs walked in
 order, T kept as a product, log T as the sum of ``max(chunk_log,
@@ -35,7 +36,8 @@ transpose through the fragment to the 9 T entries, the center, the
 channels and the opacity, summed over the warp by one reduce-scatter and
 over the block in shared memory (at sides 33-64 the cluster's 4 blocks add
 their sums through distributed shared memory, each block 32 of the chunk's
-lanes).  B3 and B4 hold the same pixels, as B1 and B2 do.
+lanes; above 64 the block replays each sub-tile in turn and adds its sums
+into the slots).  B3 and B4 hold the same pixels, as B1 and B2 do.
 
 **What bounds them on the H100.**  As B1/B2: each pair may be evaluated
 at every pixel of its tile until the tile exits, and each record is read
@@ -148,7 +150,7 @@ def composite_surfel_fwd_cuda(records, tile_starts, tile_counts, tile_ids,
     :func:`composite_surfel_fwd`, all on one CUDA device."""
     global launches
     _check(records, tile_starts, tile_counts, tile_ids, cfg)
-    check_cuda_launch(records, cfg, "composite_surfel_fwd_cuda")
+    check_cuda_launch(records, "composite_surfel_fwd_cuda")
     fn = _kernel()
     nf, s = records.shape
     nc = nf - 14
@@ -266,7 +268,7 @@ def composite_surfel_bwd_cuda(records, tile_starts, tile_counts, tile_ids,
     global bwd_launches
     _check_bwd(records, tile_starts, tile_counts, tile_ids, logt, exit_k,
                gcol, glogt, cfg)
-    check_cuda_launch(records, cfg, "composite_surfel_bwd_cuda")
+    check_cuda_launch(records, "composite_surfel_bwd_cuda")
     fn = _bwd_kernel()
     nf, s = records.shape
     t = tile_starts.shape[0]

@@ -25,8 +25,8 @@ Usage:  python -m gaussiansplats3d_tpu_torch.tools.bench_configs
             [--small] [--cpu] [--tile 32]
 
 --small shrinks counts 100x (a smoke run); --cpu runs on the CPU with the
-plain PyTorch kernels; --tile sets every config's tile side (on a CUDA
-device up to 64, render/cuda_rasterize.py: MAX_CUDA_TILE).
+plain PyTorch kernels; --tile sets every config's tile side (any side >=
+1, on a CUDA device too).
 """
 
 from __future__ import annotations

@@ -18,9 +18,11 @@ kernel source is ``csrc/kernel_bench.cu``, the variant a template
 parameter, on B1's layout (``csrc/composite_fwd.cu``), so that the
 variants split today's B1: one block a tile of ``warp_cull::warps(ts) *
 32`` threads (512 at tile 32), each holding 2 pixels of its warp's 8 x 8
-patch, and at sides 33-64 a thread-block cluster of 4 blocks of 512, one
-a 32 x 32 quadrant, that take B1's exit vote over the cluster (sides
-above 64 are refused, ``cuda_rasterize.check_cuda_launch``); each
+patch, at sides 33-64 a thread-block cluster of 4 blocks of 512, one a
+32 x 32 quadrant, that take B1's exit vote over the cluster, and at sides
+of 65 or more one block of 512 that walks the tile's 32 x 32 sub-tiles as
+B1 does, each variant with its own vote points (so any side the JAX tool
+takes launches); each
 128-pair chunk staged in shared memory, culled per warp
 against its patch (``warp_cull.cuh``), the kept pairs walked in order
 through B1's fragment (``gauss_fragment.cuh``), and a vote after each
@@ -113,7 +115,7 @@ def variant_cuda(records, tile_starts, tile_counts, tile_ids,
     Returns ``(colors [T, P, 3], t [T, P, 1], exit_k [T] int32)``."""
     global launches
     _check(records, tile_starts, tile_counts, tile_ids, cfg, variant)
-    cr.check_cuda_launch(records, cfg, "variant_cuda")
+    cr.check_cuda_launch(records, "variant_cuda")
     fn = _kernel()
     s = records.shape[1]
     t = tile_starts.shape[0]

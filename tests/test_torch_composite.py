@@ -30,9 +30,10 @@ from gaussiansplats3d_tpu.render import rasterize
 from gaussiansplats3d_tpu.render.pipeline import chans_from_colors_logt
 from gaussiansplats3d_tpu_torch.render import cuda_rasterize as cr
 
-from torch_port_common import (both_scenes, cuda_device, cull_case,  # noqa: F401
-                               edge_pairs, edge_records, error_mass,
-                               interpret_pallas, scene_arrays)
+from torch_port_common import (WALK_SUB, WALK_TILE, both_scenes,  # noqa: F401
+                               cuda_device, cull_case, edge_pairs,
+                               edge_records, error_mass, interpret_pallas,
+                               scene_arrays, walk_exit_records)
 
 
 # one compilation per configuration instead of op-by-op dispatch (the
@@ -327,14 +328,15 @@ def test_cuda_b1_matches_plain(cuda_device, depth):
         cfg_t, port_inputs(pairs, records, device=cuda_device))
 
 
-@pytest.mark.parametrize("tile", [12, 16, 20, 32, 40, 64])
+@pytest.mark.parametrize("tile", [12, 16, 20, 32, 40, 64, 96, 128])
 def test_warp_cull_mirror_keeps_every_box_hit(tile):
     """The plain mirror of B1's and B2's per-warp cull (warp_keep over
     their warp rectangles) keeps every pair that passes the per-pixel box
     test at some pixel of the warp, on pairs whose centres or box edges sit
     within 1e-3 px of a warp rectangle's edge, half of them with boxes
     under a pixel, also where a tile's edge cuts the warps' patches and (at
-    40 and 64) on boxes across the quadrant seams; it drops some;
+    40 and 64) on boxes across the quadrant seams, (at 96 and 128) across
+    the seams of the sub-tiles a block walks; it drops some;
     kept_pair_warps counts what it keeps."""
     cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile)
     hit, keep = cull_case(cfg, seed=40 + tile)
@@ -369,20 +371,23 @@ def test_warp_rects_tile_the_tile(tile):
     assert float((rects[:, 1] - rects[:, 0]).max()) == cr.WARP_PATCH - 1
 
 
-@pytest.mark.parametrize("tile", [33, 36, 40, 48, 64])
+@pytest.mark.parametrize("tile", [33, 36, 40, 48, 64, 65, 96, 128, 200])
 def test_quadrant_patches_are_the_warp_rects(tile):
     """At sides 33-64 the kernels hold a tile as a cluster of four blocks,
-    block r on the 32 x 32 quadrant (r % 2, r / 2), its 16 warps on 8 x 8
-    patches row-major from the quadrant's corner (csrc/warp_cull.cuh:
-    patch, held, rect).  The patches that hold a pixel, clipped to the
-    tile, are exactly warp_rects' (the mirror the work counts and tests
-    use), each once; the others lie wholly past the tile's edge."""
+    block r on the 32 x 32 quadrant (r % 2, r / 2), and above 64 one block
+    walks the g x g sub-tiles of 32 x 32 (g = ceil(side / 32)), sub-tile s
+    at (s % g, s / g); on each, 16 warps on 8 x 8 patches row-major from
+    its corner (csrc/warp_cull.cuh: patch, held, rect).  The patches that
+    hold a pixel, clipped to the tile, are exactly warp_rects' (the mirror
+    the work counts and tests use), each once; the others lie wholly past
+    the tile's edge."""
     cfg = gt.RenderConfig(width=tile, height=tile, tile_size=tile)
+    g = 2 if tile <= 64 else -(-tile // 32)
     held = []
-    for quad in range(4):
+    for quad in range(g * g):
         for warp in range(16):
-            c0 = quad % 2 * 32 + warp % 4 * cr.WARP_PATCH
-            r0 = quad // 2 * 32 + warp // 4 * cr.WARP_PATCH
+            c0 = quad % g * 32 + warp % 4 * cr.WARP_PATCH
+            r0 = quad // g * 32 + warp // 4 * cr.WARP_PATCH
             if c0 < tile and r0 < tile:
                 held.append((c0 + 0.5, min(c0 + cr.WARP_PATCH, tile) - 0.5,
                              r0 + 0.5, min(r0 + cr.WARP_PATCH, tile) - 0.5))
@@ -391,46 +396,61 @@ def test_quadrant_patches_are_the_warp_rects(tile):
     assert len(set(held)) == len(held) == (-(-tile // cr.WARP_PATCH)) ** 2
 
 
+@pytest.mark.parametrize("tile", [64, 65, 128])
 @pytest.mark.parametrize("wrapper", ["b1", "b2", "b3", "b4", "b5"])
-def test_cuda_wrappers_refuse_sides_above_64(wrapper):
-    """Each CUDA compositor's wrapper takes sides up to 64 (a cluster of
-    4 blocks of 32 x 32) and refuses 65 with a ValueError that names the
-    limit and its reason, before it looks at the device; the plain
-    version takes 65 (CPU tensors here: at 64 the wrapper asks for CUDA
-    tensors instead)."""
+def test_cuda_wrappers_take_every_side(wrapper, tile):
+    """Each CUDA compositor's wrapper takes every side (a cluster of four
+    32 x 32 blocks at 64, one block walking 32 x 32 sub-tiles at 65 and
+    128): on CPU tensors the one thing it refuses is the device, with a
+    ValueError that asks for CUDA tensors; the plain versions render the
+    same inputs."""
     from gaussiansplats3d_tpu_torch.render import cuda_surfel as cs
     from gaussiansplats3d_tpu_torch.tools import kernel_bench as kb
-    for tile, match in ((64, "needs CUDA tensors"),
-                        (65, "tile_size 65 > 64: .*cluster")):
-        cfg = gt.RenderConfig(width=2 * tile, height=tile, tile_size=tile)
-        p = tile * tile
-        ids = torch.arange(2, dtype=torch.int32)
-        starts = torch.tensor([0, 128], dtype=torch.int32)
-        counts = torch.zeros(2, dtype=torch.int32)
-        exit_k = torch.zeros(2, dtype=torch.int32)
-        logt = torch.zeros(2, p)
-        rec11, rec17 = torch.zeros(11, 256), torch.zeros(17, 256)
-        call = {
-            "b1": lambda: cr.composite_fwd_cuda(rec11, starts, counts, ids,
-                                                cfg),
-            "b2": lambda: cr.composite_bwd_cuda(
-                rec11, starts, counts, ids, logt, exit_k,
-                torch.zeros(2, 4, p), cfg),
-            "b3": lambda: cs.composite_surfel_fwd_cuda(rec17, starts, counts,
-                                                       ids, cfg),
-            "b4": lambda: cs.composite_surfel_bwd_cuda(
-                rec17, starts, counts, ids, logt, exit_k,
-                torch.zeros(2, p, 3), logt, cfg),
-            "b5": lambda: kb.variant_cuda(rec11, starts, counts, ids, cfg,
-                                          "full")}[wrapper]
-        with pytest.raises(ValueError, match=match):
-            call()
+    cfg = gt.RenderConfig(width=2 * tile, height=tile, tile_size=tile)
+    p = tile * tile
+    ids = torch.arange(2, dtype=torch.int32)
+    starts = torch.tensor([0, 128], dtype=torch.int32)
+    counts = torch.zeros(2, dtype=torch.int32)
+    exit_k = torch.zeros(2, dtype=torch.int32)
+    logt = torch.zeros(2, p)
+    rec11, rec17 = torch.zeros(11, 256), torch.zeros(17, 256)
+    call = {
+        "b1": lambda: cr.composite_fwd_cuda(rec11, starts, counts, ids, cfg),
+        "b2": lambda: cr.composite_bwd_cuda(
+            rec11, starts, counts, ids, logt, exit_k, torch.zeros(2, 4, p),
+            cfg),
+        "b3": lambda: cs.composite_surfel_fwd_cuda(rec17, starts, counts,
+                                                   ids, cfg),
+        "b4": lambda: cs.composite_surfel_bwd_cuda(
+            rec17, starts, counts, ids, logt, exit_k, torch.zeros(2, p, 3),
+            logt, cfg),
+        "b5": lambda: kb.variant_cuda(rec11, starts, counts, ids, cfg,
+                                      "full")}[wrapper]
+    with pytest.raises(ValueError, match="needs CUDA tensors$"):
+        call()
     plain = {"b1": cr.composite_fwd, "b3": cs.composite_surfel_fwd}.get(
         wrapper)
     if plain is not None:
         out = plain(rec11 if wrapper == "b1" else rec17, starts, counts, ids,
                     cfg)
         assert torch.equal(out[2], exit_k)
+
+
+def test_walk_exits_of_the_second_pass_records():
+    """The records of the walk's second-pass case (walk_exit_records), on
+    the plain B1: the tile exits after chunk 6 of 7, the exit of sub-tile
+    (2, 2) alone; every other sub-tile's own exit is chunk 1, so the walk
+    runs the 10 sub-tiles before it a second time (walk_exits)."""
+    cfg = gt.RenderConfig(width=WALK_TILE, height=WALK_TILE,
+                          tile_size=WALK_TILE)
+    inputs = walk_exit_records("cpu")
+    _, logt, exit_k = cr.composite_fwd(*inputs, cfg)
+    k_sub, second = cr.walk_exits(cr.composite_fwd_torch, *inputs, cfg)
+    assert exit_k.tolist() == [6]
+    assert k_sub[0, WALK_SUB] == 6 and second.tolist() == [WALK_SUB]
+    assert set(k_sub[0].tolist()) == {1, 6}
+    # T died below the floor outside the sub-tile: B2 replays there
+    assert float(logt.min()) < cr._CS_FLOOR
 
 
 def port_pairs(device, tile, seed, big=0.0, n=3000, width=200, height=150):
@@ -470,12 +490,15 @@ def assert_cuda_b1_matches_plain(cfg, inputs):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("big", [0.0, 0.05])
-@pytest.mark.parametrize("tile", [12, 16, 20, 32, 36, 40, 64])
+@pytest.mark.parametrize("tile", [12, 16, 20, 32, 36, 40, 64, 65, 80, 96,
+                                  128, 256])
 def test_cuda_b1_matches_plain_at_tile_sizes(cuda_device, tile, big):
     """B1 against its plain version at tiles 12, 16, 20 and 32 (warp
-    patches cut at the tile's edge at 12 and 20) and 36, 40 and 64 (a
+    patches cut at the tile's edge at 12 and 20), 36, 40 and 64 (a
     cluster of four 32 x 32 blocks; at 36 and 40 narrow quadrants with
-    warps wholly past the tile's edge), on a scene and on the same scene
+    warps wholly past the tile's edge) and 65, 80, 96, 128 and 256 (one
+    block walking 32 x 32 sub-tiles; at 65 and 80 narrow ones, at 256 one
+    tile over the whole 200 x 150 image), on a scene and on the same scene
     with 5% of the splats scaled x20."""
     cfg, inputs = port_pairs(cuda_device, tile, seed=47, big=big)
     rx = inputs[0][9][:int(inputs[2].long().sum())]
@@ -485,11 +508,12 @@ def test_cuda_b1_matches_plain_at_tile_sizes(cuda_device, tile, big):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [12, 16, 32, 64])
+@pytest.mark.parametrize("tile", [12, 16, 32, 64, 96, 128])
 def test_cuda_b1_pairs_at_warp_edges(cuda_device, tile):
     """B1 against its plain version on hand-built records whose pairs sit
-    just inside and just outside a warp's rectangle (edge_records), and at
-    64 across the quadrant seams."""
+    just inside and just outside a warp's rectangle (edge_records), at 64
+    across the quadrant seams and at 96 and 128 across the seams of the
+    sub-tiles the block walks."""
     cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile)
     assert_cuda_b1_matches_plain(cfg, edge_records(cfg, 48 + tile,
                                                    cuda_device))
@@ -514,13 +538,15 @@ def assert_cuda_b2_matches_plain(cfg, inputs, device, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("big", [0.0, 0.05])
-@pytest.mark.parametrize("tile", [12, 16, 20, 32, 36, 40, 64])
+@pytest.mark.parametrize("tile", [12, 16, 20, 32, 36, 40, 64, 65, 80, 96,
+                                  128, 256])
 def test_cuda_b2_matches_plain_at_tile_sizes(cuda_device, tile, big):
     """B2 against its plain version at tiles 12, 16, 20 and 32 (tiles whose
-    square is no multiple of 32 included) and 36, 40 and 64 (a cluster of
-    four blocks, whose sums meet in distributed shared memory), on a scene
-    and on the same scene with 5% of the splats scaled x20, whose boxes
-    span many warps and tiles."""
+    square is no multiple of 32 included), 36, 40 and 64 (a cluster of
+    four blocks, whose sums meet in distributed shared memory) and 65, 80,
+    96, 128 and 256 (one block replaying each 32 x 32 sub-tile in turn and
+    adding its sums into the slots), on a scene and on the same scene with
+    5% of the splats scaled x20, whose boxes span many warps and tiles."""
     cfg, inputs = port_pairs(cuda_device, tile, seed=42, big=big)
     rx = inputs[0][9][:int(inputs[2].long().sum())]
     # boxes across 2 tiles or more (at 64: the scene's largest, ~125 px)
@@ -529,11 +555,12 @@ def test_cuda_b2_matches_plain_at_tile_sizes(cuda_device, tile, big):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [12, 16, 32, 64])
+@pytest.mark.parametrize("tile", [12, 16, 32, 64, 96, 128])
 def test_cuda_b2_pairs_at_warp_edges(cuda_device, tile):
     """B2 against its plain version on hand-built records whose pairs sit
-    just inside and just outside a warp's rectangle (edge_records), and at
-    64 across the quadrant seams."""
+    just inside and just outside a warp's rectangle (edge_records), at 64
+    across the quadrant seams and at 96 and 128 across the seams of the
+    sub-tiles the block walks."""
     cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile)
     inputs = edge_records(cfg, 44 + tile, cuda_device)
     assert_cuda_b2_matches_plain(cfg, inputs, cuda_device, seed=45)
@@ -551,6 +578,34 @@ def test_cuda_b2_replays_where_t_dies(cuda_device):
               torch.tensor(counts, device=cuda_device),
               torch.arange(4, dtype=torch.int32, device=cuda_device))
     assert_cuda_b2_matches_plain(cfg, inputs, cuda_device, seed=46)
+
+
+@pytest.mark.cuda
+def test_cuda_b1_second_pass_at_tile_128(cuda_device):
+    """B1 at tile 128 where one sub-tile outlives the others
+    (walk_exit_records): the block runs the 10 sub-tiles before it a second
+    time, to the tile's exit; exit_k is that sub-tile's own exit chunk, and
+    every pixel matches the plain version."""
+    cfg = gt.RenderConfig(width=WALK_TILE, height=WALK_TILE,
+                          tile_size=WALK_TILE)
+    inputs = walk_exit_records(cuda_device)
+    k_sub, second = cr.walk_exits(cr.composite_fwd_torch, *inputs, cfg)
+    assert second.tolist() == [WALK_SUB]
+    _, _, exit_k = cr.composite_fwd(*inputs, cfg)
+    assert exit_k.tolist() == [int(k_sub[0, WALK_SUB])] == [6]
+    assert_cuda_b1_matches_plain(cfg, inputs)
+
+
+@pytest.mark.cuda
+def test_cuda_b2_replays_where_t_dies_at_tile_128(cuda_device):
+    """B2 against its plain version at tile 128 on walk_exit_records:
+    outside sub-tile (2, 2) chunk 0's sum falls below the floor, so the
+    replay of B1's sum runs there, and that sub-tile's sums are added
+    into the slots the first sub-tile wrote."""
+    cfg = gt.RenderConfig(width=WALK_TILE, height=WALK_TILE,
+                          tile_size=WALK_TILE)
+    assert_cuda_b2_matches_plain(cfg, walk_exit_records(cuda_device),
+                                 cuda_device, seed=47)
 
 
 def test_build_names_libraries_by_source_and_needs_nvcc(monkeypatch):

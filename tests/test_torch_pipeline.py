@@ -164,6 +164,34 @@ def test_render_gradients_match_jax_at_tile_64():
         record_precision="f32"), "jax", False)
 
 
+# The tile-96 tests' scene: 800 splats at 192 x 192, 2 x 2 tiles of 96,
+# each walked by the CUDA compositors as 3 x 3 sub-tiles of 32 x 32.
+T96_SIZE, T96_SPLATS = 192, 800
+
+
+def test_render_matches_jax_at_tile_96():
+    """render() at tile 96 (on a card one block a tile walking its 32 x 32
+    sub-tiles; the plain versions here) against gs.render(backend="jax"),
+    f32 records, under the images' bars, with the same pair count."""
+    s_j, s_t, cam_j, cam_t = _scene(seed=50, n=T96_SPLATS)
+    kw = dict(width=T96_SIZE, height=T96_SIZE, tile_size=96, sh_degree=1,
+              record_precision="f32", background=(0.2, 0.1, 0.3))
+    out_j = render_j(s_j, cam_j, gs.RenderConfig(backend="jax", **kw),
+                     return_aux=True)
+    out_t = gt.render(s_t, cam_t, gt.RenderConfig(**kw), return_aux=True)
+    _assert_close(out_t, out_j, KEYS)
+    assert int(out_t["num_pairs"]) == int(out_j["num_pairs"]) > 0
+    assert int(out_t["overflow"]) == int(out_j["overflow"]) == 0
+
+
+def test_render_gradients_match_jax_at_tile_96():
+    """The gradients of all five fields at tile 96, the plain B2 on the
+    CPU against jax.grad of backend="jax", under the same bar."""
+    _assert_gradients_match_jax(T96_SPLATS, dict(
+        width=T96_SIZE, height=T96_SIZE, tile_size=96, sh_degree=1,
+        record_precision="f32"), "jax", False)
+
+
 def _assert_gradients_match_jax(n, kw, backend, depth):
     s_j, _ = both_scenes(scene_arrays(n, sh_degree=1, seed=45))
     cam_j, cam_t = both_cameras(gs.Camera.look_at(
@@ -215,31 +243,39 @@ def test_cuda_render_gradients_match_cpu_at_tile_64(cuda_device):
 
 
 @pytest.mark.cuda
-def test_cuda_side_65_raises_and_plain_renders(cuda_device):
-    """A side above 64 needs a cluster of 9 blocks or more: render() on
-    the card raises a ValueError that names the limit before any kernel
-    launches, and the CPU render (plain versions) renders it."""
+def test_cuda_render_gradients_match_cpu_at_tile_128(cuda_device):
+    """The same training step at tile size 128: B1 and B2 as one block a
+    tile walking its 4 x 4 sub-tiles of 32 x 32, once each."""
+    _assert_cuda_gradients_match_cpu(cuda_device, gt.RenderConfig(
+        width=256, height=192, tile_size=128, sh_degree=1,
+        record_precision="f32", return_depth=True))
+
+
+@pytest.mark.cuda
+def test_cuda_side_65_matches_cpu_render(cuda_device):
+    """A side of 65 (one block walking 3 x 3 sub-tiles, 1 px wide at the
+    tile's edge): render() on the card launches B1 once and gives the CPU
+    render's images."""
     arrays = scene_arrays(2000, sh_degree=1, seed=49)
     cam_j = gs.Camera.look_at((2.5, 1.5, 2.5), (0, 0, 0), fov_y_deg=60,
                               aspect=4 / 3)
-    cfg = gt.RenderConfig(width=160, height=120, tile_size=65, sh_degree=1)
-    outs = {}
+    cfg = gt.RenderConfig(width=160, height=120, tile_size=65, sh_degree=1,
+                          return_depth=True)
+    outs = []
     for dev in ("cpu", cuda_device):
         s = gt.SplatData.from_numpy(*arrays, device=dev)
         cam = gt.Camera.from_numpy(np.asarray(cam_j.view),
                                    np.asarray(cam_j.proj),
                                    np.asarray(cam_j.cam_pos), device=dev)
         before = (cr.launches, cr.bwd_launches)
-        if dev == "cpu":
-            outs[dev] = gt.render(s, cam, cfg, return_aux=True)
-        else:
-            with pytest.raises(ValueError, match="tile_size 65 > 64"):
-                gt.render(s, cam, cfg)
-        assert (cr.launches, cr.bwd_launches) == before
-    color = outs["cpu"]["color"]
-    assert color.shape == (120, 160, 3) and bool(torch.isfinite(color).all())
-    assert int(outs["cpu"]["num_pairs"]) > 0
-    assert float(outs["cpu"]["alpha"].max()) > 0.0
+        outs.append(gt.render(s, cam, cfg, return_aux=True))
+        expect = 1 if dev != "cpu" else 0
+        assert (cr.launches, cr.bwd_launches) == (before[0] + expect,
+                                                  before[1])
+    assert int(outs[1]["num_pairs"]) == int(outs[0]["num_pairs"]) > 0
+    assert float(outs[0]["alpha"].max()) > 0.0
+    _assert_close(outs[1], {k: v.numpy() for k, v in outs[0].items()},
+                  KEYS + ("depth",))
 
 
 def _assert_cuda_gradients_match_cpu(cuda_device, cfg):

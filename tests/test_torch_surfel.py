@@ -350,6 +350,59 @@ def test_render_2d_gradients_match_jax_at_tile_64(interpret_pallas):
         assert p999 <= 1e-3, (f, p999)
 
 
+def _tile_96_case(seed):
+    """The tile-96 tests' scene and configurations: 300 splats over a
+    background at 192 x 192, 2 x 2 tiles of 96 (on a card each walked by
+    one block as 3 x 3 sub-tiles of 32 x 32), f32 records with depth; the
+    JAX package's backend="jax" (its XLA surfel compositor)."""
+    s_j, s_t = both_scenes(scene_arrays(300, sh_degree=1, seed=seed))
+    cam_j, cam_t = both_cameras(gs.Camera.look_at(
+        (2.4, 1.5, 2.2), (0, 0, 0), fov_y_deg=60, aspect=1.0))
+    kw = dict(width=192, height=192, sh_degree=1, render_mode_2d=True,
+              tile_size=96, record_precision="f32", return_depth=True,
+              background=(0.5, 0.5, 0.5))
+    return (s_j, s_t, cam_j, cam_t, gs.RenderConfig(backend="jax", **kw),
+            gt.RenderConfig(**kw))
+
+
+def test_render_2d_matches_jax_at_tile_96():
+    """render() in 2D at tile 96 (B3 walking 32 x 32 sub-tiles on a card;
+    its plain version here) against gs.render in 2D with backend="jax",
+    under the images' bars."""
+    s_j, s_t, cam_j, cam_t, cfg_j, cfg_t = _tile_96_case(seed=82)
+    out_j = gs.render(s_j, cam_j, cfg_j, return_aux=True)
+    out_t = gt.render(s_t, cam_t, cfg_t, return_aux=True)
+    assert int(out_t["num_pairs"]) == int(out_j["num_pairs"]) > 200
+    for k in ("color", "alpha", "depth"):
+        a, b = out_t[k].numpy(), np.asarray(out_j[k])
+        assert a.shape == b.shape and np.isfinite(a).all(), k
+        p999, over = error_mass(a, b)
+        assert p999 <= 1e-3 and over <= 1e-3, (k, p999, over)
+
+
+def test_render_2d_gradients_match_jax_at_tile_96():
+    """The 2D gradients of all five fields at tile 96 against jax.grad of
+    gs.render in 2D with backend="jax", under the f32 bar; scales[:, 2]
+    gets none.  jax.grad runs eagerly, as the renders do: under jit a
+    fused FMA flips a 1/16-px box edge of this scene."""
+    s_j, s_t, cam_j, cam_t, cfg_j, cfg_t = _tile_96_case(seed=83)
+    g_j = jax.grad(lambda s: _image_loss(gs.render(s, cam_j, cfg_j),
+                                         True))(s_j)
+    for f in FIELDS:
+        getattr(s_t, f).requires_grad_(True)
+    _image_loss(gt.render(s_t, cam_t, cfg_t), True).backward()
+    assert float(s_t.scales.grad[:, 2].abs().max()) == 0.0
+    for f in FIELDS:
+        ref = np.asarray(getattr(g_j, f))
+        got = getattr(s_t, f).grad.numpy()
+        if f == "scales":
+            ref, got = ref[:, :2], got[:, :2]
+        scale = np.abs(ref).max()
+        assert scale > 0.0 and np.isfinite(got).all(), f
+        p999, _ = error_mass(got / scale, ref / scale)
+        assert p999 <= 1e-3, (f, p999)
+
+
 def test_train_step_2d_matches_jax():
     """make_train_step with render_mode_2d trains surfels: its loss is the
     JAX package's 2D step's, not the 3D step's, scales[:, 2] gets no

@@ -30,9 +30,11 @@ from gaussiansplats3d_tpu.render import surfel as surfel_j
 from gaussiansplats3d_tpu_torch import _build
 from gaussiansplats3d_tpu_torch.render import cuda_surfel as cs
 
-from torch_port_common import (both_cameras, both_scenes, cuda_device,  # noqa: F401
-                               cull_case, edge_pairs, edge_windows,
-                               error_mass, interpret_pallas, scene_arrays)
+from torch_port_common import (WALK_SUB, WALK_TILE, both_cameras,  # noqa: F401
+                               both_scenes, cuda_device, cull_case,
+                               edge_pairs, edge_windows, error_mass,
+                               interpret_pallas, scene_arrays,
+                               walk_exit_boxes)
 
 FIELDS = ("means", "scales", "quats", "colors", "sh")
 
@@ -278,14 +280,15 @@ def test_build_hashes_the_fragment_header():
         _build.Path.read_bytes = orig
 
 
-@pytest.mark.parametrize("tile", [12, 16, 20, 32, 40, 64])
+@pytest.mark.parametrize("tile", [12, 16, 20, 32, 40, 64, 96, 128])
 def test_warp_cull_mirror_keeps_every_box_hit(tile):
     """The plain mirror of B3's and B4's per-warp cull (warp_keep over
     their warp rectangles) keeps every pair that passes the per-pixel box
     test at some pixel of the warp, on pairs whose centres or box edges sit
     within 1e-3 px of a warp rectangle's edge, half of them with boxes
-    under a pixel, also where a tile's edge cuts the warps' patches and (at
-    40 and 64) on boxes across the quadrant seams; and it drops some."""
+    under a pixel, also where a tile's edge cuts the warps' patches, (at
+    40 and 64) on boxes across the quadrant seams and (at 96 and 128)
+    across the seams of the sub-tiles a block walks; and it drops some."""
     cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile,
                           render_mode_2d=True)
     hit, keep = cull_case(cfg, seed=70 + tile)
@@ -333,6 +336,43 @@ def edge_surfels(cfg, seed, device):
             torch.arange(cfg.num_tiles, dtype=torch.int32, device=device))
 
 
+def walk_exit_surfels(device):
+    """walk_exit_boxes as B3's records [17, 896], facing the camera as in
+    _wall_records with s = 1e4 tangent units a pixel: rho ~ 0, so alpha is
+    the opacity wherever the box holds the pixel centre; with its window
+    and tile id 0 on ``device``."""
+    (cx, cy, rx, ry, opa, rgb), (starts, counts) = walk_exit_boxes()
+    rec = np.zeros((17, 896), np.float32)
+    zero, one = np.zeros_like(cx), np.ones_like(cx)
+    rec[:, :800] = np.stack([1e4 * one, zero, zero, zero, 1e4 * one, zero,
+                             cx, cy, one, cx, cy, *rgb, opa, rx, ry])
+    return (torch.tensor(rec, device=device),
+            torch.tensor(starts, device=device),
+            torch.tensor(counts, device=device),
+            torch.zeros(1, dtype=torch.int32, device=device))
+
+
+def _walk_cfg():
+    return gt.RenderConfig(width=WALK_TILE, height=WALK_TILE,
+                           tile_size=WALK_TILE, render_mode_2d=True)
+
+
+def test_walk_exits_of_the_second_pass_surfels():
+    """The walk's second-pass case as surfels (walk_exit_surfels), on the
+    plain B3: the tile exits after chunk 6 of 7, the exit of sub-tile (2,
+    2) alone; every other sub-tile's own exit is chunk 1, so the walk runs
+    the 10 sub-tiles before it a second time (walk_exits)."""
+    from gaussiansplats3d_tpu_torch.render import cuda_rasterize as cr
+    inputs = walk_exit_surfels("cpu")
+    _, logt, exit_k = cs.composite_surfel_fwd(*inputs, _walk_cfg())
+    k_sub, second = cr.walk_exits(cs.composite_surfel_fwd_torch, *inputs,
+                                  _walk_cfg())
+    assert exit_k.tolist() == [6]
+    assert k_sub[0, WALK_SUB] == 6 and second.tolist() == [WALK_SUB]
+    assert set(k_sub[0].tolist()) == {1, 6}
+    assert float(logt.min()) < cr._CS_FLOOR
+
+
 def assert_cuda_b3_matches_plain(cfg, inputs):
     """B3 launched once on the card against the plain B3: colors and log T
     p99.9 |d| <= 1e-3 and <= 0.1% over 1e-2, exit_k equal on >= 99% of
@@ -351,12 +391,15 @@ def assert_cuda_b3_matches_plain(cfg, inputs):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("big", [0.0, 0.05])
-@pytest.mark.parametrize("tile", [12, 16, 20, 32, 36, 40, 64])
+@pytest.mark.parametrize("tile", [12, 16, 20, 32, 36, 40, 64, 65, 80, 96,
+                                  128, 256])
 def test_cuda_b3_matches_plain_at_tile_sizes(cuda_device, tile, big):
     """B3 against its plain version at tiles 12, 16, 20 and 32 (warp
-    patches cut at the tile's edge at 12 and 20) and 36, 40 and 64 (a
-    cluster of four 32 x 32 blocks; narrow quadrants at 36 and 40), on a
-    scene and on the same scene with 5% of the splats scaled x20."""
+    patches cut at the tile's edge at 12 and 20), 36, 40 and 64 (a
+    cluster of four 32 x 32 blocks; narrow quadrants at 36 and 40) and 65,
+    80, 96, 128 and 256 (one block walking 32 x 32 sub-tiles; narrow ones
+    at 65 and 80), on a scene and on the same scene with 5% of the splats
+    scaled x20."""
     cfg, inputs = port_surfels(cuda_device, tile, seed=76, big=big)
     rx = inputs[0][15][:int(inputs[2].long().sum())]
     # boxes across 2 tiles or more (at 64: the scene's largest, ~125 px)
@@ -365,11 +408,12 @@ def test_cuda_b3_matches_plain_at_tile_sizes(cuda_device, tile, big):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [12, 16, 32, 64])
+@pytest.mark.parametrize("tile", [12, 16, 32, 64, 96, 128])
 def test_cuda_b3_pairs_at_warp_edges(cuda_device, tile):
     """B3 against its plain version on hand-built surfels that sit just
-    inside and just outside a warp's rectangle (edge_surfels), and at 64
-    across the quadrant seams."""
+    inside and just outside a warp's rectangle (edge_surfels), at 64
+    across the quadrant seams and at 96 and 128 across the seams of the
+    sub-tiles the block walks."""
     cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile,
                           render_mode_2d=True)
     assert_cuda_b3_matches_plain(cfg, edge_surfels(cfg, 77 + tile,
@@ -399,12 +443,15 @@ def assert_cuda_b4_matches_plain(cfg, inputs, device, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("big", [0.0, 0.05])
-@pytest.mark.parametrize("tile", [12, 16, 20, 32, 36, 40, 64])
+@pytest.mark.parametrize("tile", [12, 16, 20, 32, 36, 40, 64, 65, 80, 96,
+                                  128, 256])
 def test_cuda_b4_matches_plain_at_tile_sizes(cuda_device, tile, big):
-    """B4 against its plain version at tiles 12, 16, 20 and 32 and 36, 40
-    and 64 (a cluster of four blocks, whose sums meet in distributed
-    shared memory), on a scene and on the same scene with 5% of the
-    splats scaled x20, whose boxes span many warps and tiles."""
+    """B4 against its plain version at tiles 12, 16, 20 and 32, 36, 40 and
+    64 (a cluster of four blocks, whose sums meet in distributed shared
+    memory) and 65, 80, 96, 128 and 256 (one block replaying each 32 x 32
+    sub-tile in turn and adding its sums into the slots), on a scene and
+    on the same scene with 5% of the splats scaled x20, whose boxes span
+    many warps and tiles."""
     cfg, inputs = port_surfels(cuda_device, tile, seed=71, big=big)
     rx = inputs[0][15][:int(inputs[2].long().sum())]
     # boxes across 2 tiles or more (at 64: the scene's largest, ~125 px)
@@ -413,11 +460,12 @@ def test_cuda_b4_matches_plain_at_tile_sizes(cuda_device, tile, big):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [12, 16, 32, 64])
+@pytest.mark.parametrize("tile", [12, 16, 32, 64, 96, 128])
 def test_cuda_b4_pairs_at_warp_edges(cuda_device, tile):
     """B4 against its plain version on hand-built surfels that sit just
-    inside and just outside a warp's rectangle (edge_surfels), and at 64
-    across the quadrant seams."""
+    inside and just outside a warp's rectangle (edge_surfels), at 64
+    across the quadrant seams and at 96 and 128 across the seams of the
+    sub-tiles the block walks."""
     cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile,
                           render_mode_2d=True)
     inputs = edge_surfels(cfg, 73 + tile, cuda_device)
@@ -432,6 +480,24 @@ def test_cuda_b4_replays_where_t_dies(cuda_device):
     _, cfg = _wall_cfgs()
     inputs = port_inputs(*_wall_records(), device=cuda_device)
     assert_cuda_b4_matches_plain(cfg, inputs, cuda_device, seed=75)
+
+
+@pytest.mark.cuda
+def test_cuda_b3_second_pass_at_tile_128(cuda_device):
+    """B3 at tile 128 where one sub-tile outlives the others
+    (walk_exit_surfels): the block runs the 10 sub-tiles before it a second
+    time; exit_k is that sub-tile's own exit chunk, every pixel matches the
+    plain version, and B4 replays the dying chunk against its plain
+    version."""
+    from gaussiansplats3d_tpu_torch.render import cuda_rasterize as cr
+    inputs = walk_exit_surfels(cuda_device)
+    k_sub, second = cr.walk_exits(cs.composite_surfel_fwd_torch, *inputs,
+                                  _walk_cfg())
+    assert second.tolist() == [WALK_SUB]
+    _, _, exit_k = cs.composite_surfel_fwd(*inputs, _walk_cfg())
+    assert exit_k.tolist() == [int(k_sub[0, WALK_SUB])] == [6]
+    assert_cuda_b3_matches_plain(_walk_cfg(), inputs)
+    assert_cuda_b4_matches_plain(_walk_cfg(), inputs, cuda_device, seed=76)
 
 
 @pytest.mark.cuda

@@ -367,12 +367,14 @@ def assert_cuda_b5_matches_plain(args):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [12, 16, 20, 32, 36, 40, 64])
+@pytest.mark.parametrize("tile", [12, 16, 20, 32, 36, 40, 64, 96])
 def test_cuda_b5_variants_match_plain(cuda_device, tile):
     """Every B5 variant on the card against its plain version, at tiles
     12, 16, 20 and 32 (128 to 512 threads a block; warp patches cut at
-    the tile's edge at 12 and 20) and 36, 40 and 64 (a cluster of four
-    blocks of 512, with narrow quadrants at 36 and 40)."""
+    the tile's edge at 12 and 20), 36, 40 and 64 (a cluster of four
+    blocks of 512, with narrow quadrants at 36 and 40) and 96 (one block
+    walking 3 x 3 sub-tiles of 32 x 32, each variant with its own vote
+    points: exit_k per variant is the plain version's)."""
     arrays = scene_arrays(3000, seed=7, extent=1.0, scale_mul=3.0)
     s = gt.SplatData.from_numpy(*arrays, device=cuda_device)
     cam = gt.Camera.look_at((2.0, 1.2, 2.0), (0, 0, 0), aspect=4 / 3,
@@ -388,12 +390,13 @@ def test_cuda_b5_variants_match_plain(cuda_device, tile):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", [12, 16, 32, 64])
+@pytest.mark.parametrize("tile", [12, 16, 32, 64, 128])
 def test_cuda_b5_pairs_at_warp_edges(cuda_device, tile):
     """Every B5 variant against its plain version on hand-built records
     whose pairs sit just inside and just outside a warp's rectangle
-    (edge_records), in windows that start mid-chunk, and at 64 across the
-    quadrant seams."""
+    (edge_records), in windows that start mid-chunk, at 64 across the
+    quadrant seams and at 128 across the seams of the sub-tiles a block
+    walks."""
     cfg = gt.RenderConfig(width=2 * tile, height=2 * tile, tile_size=tile)
     assert_cuda_b5_matches_plain(
         (*edge_records(cfg, 52 + tile, cuda_device), cfg))

@@ -40,9 +40,10 @@ def edge_pairs(cfg, seed, n=3000):
     1e-3 px of an edge of a random warp's rectangle
     (cuda_rasterize.warp_rects), a third put their box's edge there, the
     rest lie anywhere over the tile and 3 px around it.  At sides above 32,
-    where the kernels hold a tile as four 32 x 32 quadrants, a quarter of
-    the centres on each axis then move to within their box's half-width of
-    the seam at 32, so that their boxes cross it."""
+    where the kernels hold a tile as four 32 x 32 quadrants (33-64) or walk
+    its 32 x 32 sub-tiles (above 64), a quarter of the centres on each axis
+    then move to within their box's half-width of a seam between them (a
+    multiple of 32 inside the tile), so that their boxes cross it."""
     from gaussiansplats3d_tpu_torch.render import cuda_rasterize as cr
     rng = np.random.default_rng(seed)
     ts = cfg.tile_size
@@ -64,10 +65,13 @@ def edge_pairs(cfg, seed, n=3000):
                                 edge + sign * r[:, axis] + jitter],
                                c[:, axis])
     if ts > 32:
+        # the seams between quadrants (sides 33-64) or sub-tiles (above 64)
+        g = -(-ts // 32)
         for axis in (0, 1):
             seam = rng.random(n) < 0.25
+            at = 32.0 * rng.integers(1, g, n) if g > 2 else 32.0
             c[:, axis] = np.where(
-                seam, 32.0 + rng.uniform(-1.0, 1.0, n) * r[:, axis],
+                seam, at + rng.uniform(-1.0, 1.0, n) * r[:, axis],
                 c[:, axis])
     xy = (corner + c).astype(np.float32)
     r = r.astype(np.float32)
@@ -107,6 +111,50 @@ def edge_records(cfg, seed, device):
             torch.tensor(starts, device=device),
             torch.tensor(counts, device=device),
             torch.arange(cfg.num_tiles, dtype=torch.int32, device=device))
+
+
+# The walk's second-pass case: one tile of side 128 at the origin whose
+# sub-tile (2, 2) (the 11th of 16, pixels 64-95 on both axes) outlives
+# the others.
+WALK_TILE, WALK_SUB = 128, 10
+
+
+def walk_exit_boxes(seed=13):
+    """Slots 0..299: pairs of opacity 0.97 whose boxes cover the four
+    rectangles around sub-tile (2, 2) in turn (32 a rectangle in chunk 0:
+    every other pixel's T dies there, below exp(_CS_FLOOR)); slots
+    300..799: pairs of opacity 0.015-0.025 whose boxes cover that sub-tile
+    alone, so its T falls under 1e-4 only after ~450 of them, in chunk 5.
+    Every box is flat: alpha is the opacity wherever the box holds the
+    pixel centre.  Returns numpy float32 (cx, cy, rx, ry, opacity, rgb [3,
+    n]) and the window (starts, counts) int32, capacity 896."""
+    rng = np.random.default_rng(seed)
+    # (cx, cy, rx, ry): rows 0-63; rows 96-127; rows 64-95 left and right
+    rects = np.array([[64.0, 32.0, 64.0, 31.6], [64.0, 112.0, 64.0, 15.6],
+                      [32.0, 80.0, 31.6, 15.6], [112.0, 80.0, 15.6, 15.6]],
+                     np.float32)
+    box = np.concatenate([rects[np.arange(300) % 4],
+                          np.tile([[80.0, 80.0, 15.6, 15.6]], (500, 1))])
+    opa = np.concatenate([np.full(300, 0.97),
+                          rng.uniform(0.015, 0.025, 500)])
+    rgb = rng.uniform(0.0, 1.0, (3, 800))
+    cx, cy, rx, ry = box.T.astype(np.float32)
+    return ((cx, cy, rx, ry, opa.astype(np.float32), rgb.astype(np.float32)),
+            (np.array([0], np.int32), np.array([800], np.int32)))
+
+
+def walk_exit_records(device):
+    """walk_exit_boxes as B1's records [11, 896] (conic 1e-8: g ~ 0), with
+    its window and tile id 0 on ``device``."""
+    (cx, cy, rx, ry, opa, rgb), (starts, counts) = walk_exit_boxes()
+    rec = np.zeros((11, 896), np.float32)
+    flat = np.full_like(cx, 1e-8)
+    rec[:, :800] = np.stack([cx, cy, flat, 0.0 * flat, flat, *rgb, opa, rx,
+                             ry])
+    return (torch.tensor(rec, device=device),
+            torch.tensor(starts, device=device),
+            torch.tensor(counts, device=device),
+            torch.zeros(1, dtype=torch.int32, device=device))
 
 
 def cull_case(cfg, seed):
