@@ -1,0 +1,8 @@
+"""One adam(lr) step over the cell's parameters, timed alone:
+parallel/train.py's optimizer."""
+
+from splatbench import layers
+
+
+def read(probe):
+    return layers.adam_ms(probe, "train")
