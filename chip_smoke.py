@@ -738,7 +738,7 @@ def main_path(gt, cr, splats, cam, cfg):
         cr.reset_launches()
         for name, c in configs:
             torch.cuda.reset_peak_memory_stats()
-            before = cr.launches
+            before = launch_count(cr.LAUNCHES)
             times, enqueue = [], []
             for _ in range(RENDERS):
                 t0 = time.perf_counter()
@@ -746,7 +746,7 @@ def main_path(gt, cr, splats, cam, cfg):
                 enqueue.append((time.perf_counter() - t0) * 1e3)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
-            launches = cr.launches - before
+            launches = launch_count(cr.LAUNCHES) - before
             color, alpha = out["color"], out["alpha"]
             if color.shape != (HEIGHT, WIDTH, 3) or alpha.shape != (HEIGHT,
                                                                     WIDTH):
@@ -774,11 +774,12 @@ def main_path(gt, cr, splats, cam, cfg):
             if launches != RENDERS:
                 raise AssertionError(f"B1 launched {launches} times in "
                                      f"{RENDERS} renders of {name}")
-        total = cr.launches
+        total = launch_count(cr.LAUNCHES)
     if total != RENDERS * len(configs):
         raise AssertionError(f"B1 launched {total} times on the main path")
-    if cr.bwd_launches != 0:
-        raise AssertionError(f"B2 launched {cr.bwd_launches} times on the "
+    if launch_count(cr.BWD_LAUNCHES) != 0:
+        raise AssertionError(f"B2 launched "
+                             f"{launch_count(cr.BWD_LAUNCHES)} times on the "
                              f"forward path")
     return results, total
 
@@ -879,14 +880,15 @@ def train_path(gt, cr, splats, cam, cfg):
     cr.reset_launches()
     for name, c in configs:
         torch.cuda.reset_peak_memory_stats()
-        before = (cr.launches, cr.bwd_launches)
+        before = (launch_count(cr.LAUNCHES), launch_count(cr.BWD_LAUNCHES))
         times = []
         for _ in range(STEPS):
             t0 = time.perf_counter()
             grad_step(gt, s, cam, c)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        launches = (cr.launches - before[0], cr.bwd_launches - before[1])
+        launches = (launch_count(cr.LAUNCHES) - before[0],
+                    launch_count(cr.BWD_LAUNCHES) - before[1])
         grads = {}
         for f in FIELDS:
             g = getattr(s, f).grad
@@ -914,7 +916,7 @@ def train_path(gt, cr, splats, cam, cfg):
         if launches != (STEPS, STEPS):
             raise AssertionError(f"{launches} launches of (B1, B2) in "
                                  f"{STEPS} steps of {name}")
-    total = (cr.launches, cr.bwd_launches)
+    total = (launch_count(cr.LAUNCHES), launch_count(cr.BWD_LAUNCHES))
     if total != (STEPS * len(configs),) * 2:
         raise AssertionError(f"(B1, B2) launched {total} times on the "
                              f"training path")
@@ -1052,7 +1054,7 @@ def adam_steps(cr, splats, cam, cfg, steps=3):
         if not (np.isfinite(losses[-1]) and float(m["grad_norm"]) > 0.0):
             raise AssertionError(f"make_train_step: loss {losses[-1]}, "
                                  f"grad_norm {float(m['grad_norm'])}")
-    launches = (cr.launches, cr.bwd_launches)
+    launches = (launch_count(cr.LAUNCHES), launch_count(cr.BWD_LAUNCHES))
     log(f"make_train_step at 2M{' in 2D' if cfg.render_mode_2d else ''}: "
         f"losses {losses}, step ms {[round(t, 2) for t in times]}, "
         f"(forward, backward kernel) launches {launches}")
@@ -1428,9 +1430,17 @@ def check_b3_b4_all(cs, splats, cam, cfg):
     return entries
 
 
+def launch_count(name: str) -> int:
+    """A kernel's launches so far: its counter in the program's registry
+    (``utils.metrics``; ``cuda_rasterize.LAUNCHES`` and the like)."""
+    from gaussiansplats3d_tpu_torch.utils import metrics
+    return metrics.total(name)
+
+
 def kernel_launches(cr, cs):
     """(B1, B2, B3, B4) launch counts."""
-    return (cr.launches, cr.bwd_launches, cs.launches, cs.bwd_launches)
+    return tuple(launch_count(name) for name in (
+        cr.LAUNCHES, cr.BWD_LAUNCHES, cs.LAUNCHES, cs.BWD_LAUNCHES))
 
 
 def reset_all(cr, cs):
@@ -1583,7 +1593,7 @@ def fit_2d(gt, cs, device, steps=11):
     for _ in range(steps):
         state, m = step(state, cam, tiles, mask)
         losses.append(float(m["loss"]))
-    launches = (cs.launches, cs.bwd_launches)
+    launches = (launch_count(cs.LAUNCHES), launch_count(cs.BWD_LAUNCHES))
     log(f"2D fit (64x64, 256 surfels, {steps} Adam steps): losses "
         f"{[round(v, 6) for v in losses]}, (B3, B4) launches {launches}")
     if not (np.isfinite(losses).all() and losses[-1] < 0.9 * losses[0]):
@@ -1752,7 +1762,7 @@ def check_b5_all(kb, cr, splats, cam, cfg):
 
 def all_launches(cr, cs, kb):
     """(B1, B2, B3, B4, B5) launch counts."""
-    return kernel_launches(cr, cs) + (kb.launches,)
+    return kernel_launches(cr, cs) + (launch_count(kb.LAUNCHES),)
 
 
 def tool_path(name, fn, cr, cs, kb):
@@ -3164,7 +3174,7 @@ def tile_slice(gt, gt_build, cr, cs, kb, splats, cam, cfg, t32, side,
     cs.reset_launches()
     runs, render_b1 = main_path(gt, cr, splats, cam, cfgt)
     steps, (step_b1, step_b2) = train_path(gt, cr, splats, cam, cfgt)
-    if (cs.launches, cs.bwd_launches) != (0, 0):
+    if (launch_count(cs.LAUNCHES), launch_count(cs.BWD_LAUNCHES)) != (0, 0):
         raise AssertionError(f"B3 or B4 launched on a 3D path at tile {side}")
     run2d = main_path_2d(gt, cr, cs, splats, cam, cfgt_2d)
     step2d = train_path_2d(gt, cr, cs, splats, cam, cfgt_2d)
@@ -3174,9 +3184,9 @@ def tile_slice(gt, gt_build, cr, cs, kb, splats, cam, cfg, t32, side,
                                          runs["mixed"]["median_ms"]),
                 "train_step": profile_step(gt, splats, cam, cfgt,
                                            steps["mixed"]["median_ms"])}
-    if kb.launches != 0:
-        raise AssertionError(f"B5 launched {kb.launches} times on the "
-                             f"tile-{side} paths")
+    if launch_count(kb.LAUNCHES) != 0:
+        raise AssertionError(f"B5 launched {launch_count(kb.LAUNCHES)} "
+                             f"times on the tile-{side} paths")
     medians = {"render": {k: r["median_ms"] for k, r in runs.items()},
                "train_step": {k: r["median_ms"] for k, r in steps.items()},
                "render_2d": {"2d-mixed": run2d["median_ms"]},
@@ -3323,7 +3333,7 @@ def main():
     train_scene_run()
     small_correctness(gt, device)
     small_gradients(gt, device)
-    if (cs.launches, cs.bwd_launches) != (0, 0):
+    if (launch_count(cs.LAUNCHES), launch_count(cs.BWD_LAUNCHES)) != (0, 0):
         raise AssertionError("B3 or B4 launched on a 3D path")
 
     cfg2d = cfg.replace(render_mode_2d=True)
@@ -3349,9 +3359,9 @@ def main():
     small_2d(gt, device)
 
     # the tools slice: every render and train path above ran B5 0 times
-    if kb.launches != 0:
-        raise AssertionError(f"B5 launched {kb.launches} times on the "
-                             f"render and train paths")
+    if launch_count(kb.LAUNCHES) != 0:
+        raise AssertionError(f"B5 launched {launch_count(kb.LAUNCHES)} "
+                             f"times on the render and train paths")
     b5 = check_b5_all(kb, cr, splats, cam, cfg)
     tools = tools_slice(cr, cs, kb)
     b5["launches"] = tools["kernel_bench"]["launches"][4]

@@ -31,6 +31,7 @@ from torch import nn
 
 from ..core.types import Camera, RenderConfig, SplatData
 from ..render.pipeline import render_tiles
+from ..utils.metrics import span, traced
 from .mesh import SPLAT_AXIS, TILE_AXIS, mesh_coordinate, mesh_shape
 from .sharded import interleave_tile_order, sharded_render_tiles
 
@@ -191,6 +192,7 @@ def make_train_step(cfg: RenderConfig, mesh, optimizer,
 
 
 def _single_step(cfg: RenderConfig, optimizer):
+    @traced("gs.train.step")
     def step(state: TrainState, camera: Camera, target_tiles, tile_mask):
         params = state.params
         if state.opt_state is None:
@@ -198,7 +200,8 @@ def _single_step(cfg: RenderConfig, optimizer):
         state.opt_state.zero_grad(set_to_none=True)
         chans, _, _ = render_tiles(params.to_splats(), camera, cfg)
         loss = tile_loss(chans, target_tiles, tile_mask, cfg)
-        loss.backward()
+        with span("gs.backward"):
+            loss.backward()
         grad_norm = torch.sqrt(sum((g * g).sum() for g in _grads(params)))
         state.opt_state.step()
         state.step += 1
@@ -216,6 +219,7 @@ def _mesh_step(cfg: RenderConfig, mesh, optimizer, route: str,
     norm_groups = [mesh.get_group(SPLAT_AXIS)] + (
         [tile_group] if route == "a2a" else [])
 
+    @traced("gs.train.step")
     def step(state: TrainState, camera: Camera, target_tiles, tile_mask):
         params = state.params
         if state.opt_state is None:
@@ -235,7 +239,8 @@ def _mesh_step(cfg: RenderConfig, mesh, optimizer, route: str,
         num = _error_sum(chans, target_tiles[mine], tile_mask[mine], cfg)
         # d(loss)/d(this slab) is that of num / den; the loss sums the
         # slabs' numerators
-        (num / den).backward()
+        with span("gs.backward"):
+            (num / den).backward()
         loss = num.detach().reshape(1).clone()
         dist.all_reduce(loss, group=tile_group)
         sq = sum((g * g).sum() for g in _grads(params)).reshape(1)

@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ..core.types import RenderConfig
+from ..utils import metrics
 from .projection import ProjectedSplats, quantize_depth
 
 CHUNK = 128                     # pair chunk of the compositor kernel
@@ -381,6 +382,25 @@ def _record_fields(proj: ProjectedSplats, cfg: RenderConfig, rx, ry):
                                 rad_round_u8(ry)]
 
 
+class _Gather(torch.autograd.Function):
+    """The record gather ``fields.index_select(1, src)``; its backward
+    scatter-adds each slot's cotangent into its source column, as
+    autograd's own backward of ``index_select`` (the same kernels), inside
+    the span ``gs.bin.gather_bwd``."""
+
+    @staticmethod
+    def forward(ctx, fields, src):
+        ctx.save_for_backward(src)
+        ctx.shape = fields.shape
+        return fields.index_select(1, src)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with metrics.span("gs.bin.gather_bwd"):
+            src, = ctx.saved_tensors
+            return grad.new_zeros(ctx.shape).index_add_(1, src, grad), None
+
+
 def expand_sort(cfg: RenderConfig, tx0, ty0, wt, ht, counts, depth_q,
                 fields, opa_row: int, carry_slot: bool,
                 num_tiles: int | None = None, tile_lo: int = 0,
@@ -413,6 +433,7 @@ def expand_sort(cfg: RenderConfig, tx0, ty0, wt, ht, counts, depth_q,
     big = (counts >= 1) & ~small
     counts_aux = torch.where(big, counts, torch.zeros_like(counts))
     total_aux = counts_aux.sum()
+    kept_aux = 0
     iota_n = torch.arange(n, device=dev)
 
     tiles = [t for t, _ in lane_defs]
@@ -445,10 +466,11 @@ def expand_sort(cfg: RenderConfig, tx0, ty0, wt, ht, counts, depth_q,
         bw = torch.clamp(wt[sid], min=1)
         tiles.append((ty0[sid] + rank // bw) * cfg.tiles_x
                      + tx0[sid] + rank % bw - tile_lo)
-        valids.append(iota_a < torch.clamp(covered, max=aux_cap))
+        kept_aux = torch.clamp(covered, max=aux_cap)
+        valids.append(iota_a < kept_aux)
         depths.append(depth_q[sid])
         srcs.append(sid)
-        overflow = total_aux - torch.clamp(covered, max=aux_cap)
+        overflow = total_aux - kept_aux
     else:
         overflow = total_aux
     if pad:
@@ -475,18 +497,27 @@ def expand_sort(cfg: RenderConfig, tx0, ty0, wt, ht, counts, depth_q,
     sorted_tile = sorted_key >> shift
     src = torch.cat(srcs)[perm]
 
-    records = torch.stack(fields).index_select(1, src)
+    records = _Gather.apply(torch.stack(fields), src)
     records[opa_row] = torch.where(sorted_tile < num_tiles, records[opa_row],
                                    torch.zeros_like(records[opa_row]))
 
     tile_ids = torch.arange(num_tiles, device=dev)
     starts = torch.searchsorted(sorted_tile, tile_ids)
     ends = torch.searchsorted(sorted_tile, tile_ids, right=True)
-    total = sum(v.sum() for v in valids[:lanes]) + total_aux
+    lane_pairs = sum(v.sum() for v in valids[:lanes])
+    total = lane_pairs + total_aux
+    metrics.observe("bin.calls", 1)
+    metrics.observe("bin.slots", s_total)
+    # kept = the lanes' pairs + the aux slots filled (total - overflow
+    # without a kernel launched to count)
+    metrics.observe("bin.pairs_kept", lane_pairs)
+    metrics.observe("bin.pairs_kept", kept_aux)
+    metrics.observe("bin.dropped", overflow)
     return (records, starts.to(torch.int32), (ends - starts).to(torch.int32),
             total, overflow)
 
 
+@metrics.traced("gs.bin")
 def bin_sort_records(proj: ProjectedSplats, cfg: RenderConfig,
                      tile_range: tuple | None = None,
                      depth_bounds: tuple | None = None,

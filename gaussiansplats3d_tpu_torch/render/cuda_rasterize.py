@@ -71,6 +71,7 @@ import torch
 
 from ..constants import ALPHA_CLAMP, GAUSSIAN_CUTOFF
 from ..core.types import RenderConfig
+from ..utils import metrics
 
 CHUNK = 128
 # Per-chunk floor on the log-transmittance contribution (the JAX package's
@@ -88,17 +89,16 @@ WARP_PATCH = 8
 # block walks above 64 (csrc/warp_cull.cuh: kQuadSide).
 SUB_TILE = 32
 
-launches = 0
-"""Launches of the CUDA kernel B1 made by :func:`composite_fwd` (the plain
-version does not count)."""
-bwd_launches = 0
-"""Launches of the CUDA kernel B2 made by :func:`composite_bwd`."""
+LAUNCHES = "b1.launches"
+"""The counter (``utils.metrics``) of the launches of the CUDA kernel B1
+made by :func:`composite_fwd` (the plain version does not count)."""
+BWD_LAUNCHES = "b2.launches"
+"""The counter of the launches of the CUDA kernel B2 made by
+:func:`composite_bwd`."""
 
 
 def reset_launches() -> None:
-    global launches, bwd_launches
-    launches = 0
-    bwd_launches = 0
+    metrics.reset(LAUNCHES, BWD_LAUNCHES)
 
 
 def _check_inputs(records, starts, counts, ids, cfg: RenderConfig,
@@ -165,7 +165,6 @@ def composite_fwd_cuda(records, tile_starts, tile_counts, tile_ids,
                        cfg: RenderConfig):
     """Launch B1 on the current stream.  Inputs as :func:`composite_fwd`,
     all on one CUDA device; returns (chans, logt, exit_k)."""
-    global launches
     _check_inputs(records, tile_starts, tile_counts, tile_ids, cfg)
     check_cuda_launch(records, "composite_fwd_cuda")
     fn = _kernel()
@@ -187,7 +186,7 @@ def composite_fwd_cuda(records, tile_starts, tile_counts, tile_ids,
     if err != 0:
         raise RuntimeError(f"composite_fwd kernel launch failed: CUDA error "
                            f"{err}")
-    launches += 1
+    metrics.add(LAUNCHES)
     return chans, logt, exit_k
 
 
@@ -473,7 +472,6 @@ def composite_bwd_cuda(records, tile_starts, tile_counts, tile_ids, logt,
                        exit_k, gchans, cfg: RenderConfig):
     """Launch B2 on the current stream.  Inputs as :func:`composite_bwd`,
     all on one CUDA device; returns grad_records ``[NC + 8, S]``."""
-    global bwd_launches
     _check_bwd_inputs(records, tile_starts, tile_counts, tile_ids, logt,
                       exit_k, gchans, cfg)
     check_cuda_launch(records, "composite_bwd_cuda")
@@ -493,7 +491,7 @@ def composite_bwd_cuda(records, tile_starts, tile_counts, tile_ids, logt,
     if err != 0:
         raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error "
                            f"{err}")
-    bwd_launches += 1
+    metrics.add(BWD_LAUNCHES)
     return grad
 
 
@@ -611,8 +609,10 @@ class _CompositeTiles(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gchans, _glogt, _gexit):
-        grad = composite_bwd(*ctx.saved_tensors,
-                             gchans.to(torch.float32).contiguous(), ctx.cfg)
+        with metrics.span("gs.composite.bwd"):
+            grad = composite_bwd(*ctx.saved_tensors,
+                                 gchans.to(torch.float32).contiguous(),
+                                 ctx.cfg)
         return grad, None, None, None, None
 
 

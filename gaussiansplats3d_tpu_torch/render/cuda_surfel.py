@@ -63,6 +63,7 @@ import functools
 import torch
 
 from ..core.types import RenderConfig
+from ..utils import metrics
 from .cuda_rasterize import (CHUNK, _CS_FLOOR, _EXIT_T, _GROUP_SIZE,
                              _check_inputs, _seg_scan, _tile_origins,
                              check_cuda_launch, composite_chunks_torch)
@@ -71,16 +72,16 @@ ALPHA_MAX = 0.99
 NEAR_N = 0.2
 RECORD_ROWS = (17, 18)          # NC + 14 for NC = 3 (rgb) or 4 (+ depth)
 
-launches = 0
-"""Launches of the CUDA kernel B3 made by :func:`composite_surfel_fwd`."""
-bwd_launches = 0
-"""Launches of the CUDA kernel B4 made by :func:`composite_surfel_bwd`."""
+LAUNCHES = "b3.launches"
+"""The counter (``utils.metrics``) of the launches of the CUDA kernel B3
+made by :func:`composite_surfel_fwd`."""
+BWD_LAUNCHES = "b4.launches"
+"""The counter of the launches of the CUDA kernel B4 made by
+:func:`composite_surfel_bwd`."""
 
 
 def reset_launches() -> None:
-    global launches, bwd_launches
-    launches = 0
-    bwd_launches = 0
+    metrics.reset(LAUNCHES, BWD_LAUNCHES)
 
 
 def surfel_alpha(t, cx, cy, opa, rx, ry, px, py, min_alpha):
@@ -148,7 +149,6 @@ def composite_surfel_fwd_cuda(records, tile_starts, tile_counts, tile_ids,
                               cfg: RenderConfig):
     """Launch B3 on the current stream.  Inputs as
     :func:`composite_surfel_fwd`, all on one CUDA device."""
-    global launches
     _check(records, tile_starts, tile_counts, tile_ids, cfg)
     check_cuda_launch(records, "composite_surfel_fwd_cuda")
     fn = _kernel()
@@ -170,7 +170,7 @@ def composite_surfel_fwd_cuda(records, tile_starts, tile_counts, tile_ids,
     if err != 0:
         raise RuntimeError(f"surfel_fwd kernel launch failed: CUDA error "
                            f"{err}")
-    launches += 1
+    metrics.add(LAUNCHES)
     return colors, logt, exit_k
 
 
@@ -265,7 +265,6 @@ def composite_surfel_bwd_cuda(records, tile_starts, tile_counts, tile_ids,
                               logt, exit_k, gcol, glogt, cfg: RenderConfig):
     """Launch B4 on the current stream.  Inputs as
     :func:`composite_surfel_bwd`, all on one CUDA device."""
-    global bwd_launches
     _check_bwd(records, tile_starts, tile_counts, tile_ids, logt, exit_k,
                gcol, glogt, cfg)
     check_cuda_launch(records, "composite_surfel_bwd_cuda")
@@ -285,7 +284,7 @@ def composite_surfel_bwd_cuda(records, tile_starts, tile_counts, tile_ids,
     if err != 0:
         raise RuntimeError(f"surfel_bwd kernel launch failed: CUDA error "
                            f"{err}")
-    bwd_launches += 1
+    metrics.add(BWD_LAUNCHES)
     return grad
 
 
@@ -403,9 +402,10 @@ class _CompositeSurfelTiles(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gcol, glogt, _gexit):
-        grad = composite_surfel_bwd(
-            *ctx.saved_tensors, gcol.to(torch.float32).contiguous(),
-            glogt.to(torch.float32).contiguous(), ctx.cfg)
+        with metrics.span("gs.composite.bwd"):
+            grad = composite_surfel_bwd(
+                *ctx.saved_tensors, gcol.to(torch.float32).contiguous(),
+                glogt.to(torch.float32).contiguous(), ctx.cfg)
         return grad, None, None, None, None
 
 

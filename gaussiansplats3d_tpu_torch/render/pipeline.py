@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 
 from ..core.types import Camera, RenderConfig, SplatData
+from ..utils.metrics import traced
 from .binning import SortedPairs, bin_sort_records
 from .cuda_rasterize import composite_tiles, tile_ids_from_base
 from .projection import project_splats
@@ -101,6 +102,7 @@ def render_tiles(splats: SplatData, camera: Camera, cfg: RenderConfig,
     return composite_sorted(cfg, pairs), pairs.total_pairs, pairs.overflow
 
 
+@traced("gs.render")
 def render(splats: SplatData, camera: Camera, cfg: RenderConfig,
            transforms: Optional[torch.Tensor] = None,
            scene_indices: Optional[torch.Tensor] = None,

@@ -26,6 +26,7 @@ from ..core import math3d
 from ..core.covariance import covariance6_elements, quadratic_form6
 from ..core.sh import eval_sh_color
 from ..core.types import Camera, RenderConfig, SplatData, derive_focal
+from ..utils.metrics import traced
 
 
 @dataclass
@@ -129,6 +130,7 @@ def conic_from_cov(a, b, c):
     return c * inv_det, -b * inv_det, a * inv_det
 
 
+@traced("gs.project")
 def project_splats(splats: SplatData, camera: Camera, cfg: RenderConfig,
                    transforms: torch.Tensor | None = None,
                    scene_indices: torch.Tensor | None = None,

@@ -31,6 +31,7 @@ from ..constants import CLIP_FACTOR
 from ..core import math3d
 from ..core.sh import eval_sh_color
 from ..core.types import Camera, RenderConfig, SplatData
+from ..utils.metrics import traced
 from .binning import expand_sort, f16_round, slab_window, u16r_round
 from .compositing import pixel_grid
 from .cuda_rasterize import tile_ids_from_base
@@ -91,6 +92,7 @@ def _to_pixels(m: torch.Tensor, w: int, h: int) -> torch.Tensor:
                         fused(m[..., 1, :], h / 2.0), m[..., 3, :]], dim=-1)
 
 
+@traced("gs.project")
 def project_surfels(splats: SplatData, camera: Camera, cfg: RenderConfig,
                     transforms: torch.Tensor | None = None,
                     scene_indices: torch.Tensor | None = None,
@@ -289,6 +291,7 @@ def render_2d(splats: SplatData, camera: Camera, cfg: RenderConfig,
     return out
 
 
+@traced("gs.bin")
 def bin_sort_surfels(sp: SurfelProjection, cfg: RenderConfig,
                      tile_range: tuple | None = None,
                      depth_bounds: tuple | None = None,

@@ -68,6 +68,7 @@ import torch
 
 from ..core.types import RenderConfig
 from ..render import cuda_rasterize as cr
+from ..utils import metrics
 
 VARIANTS = ("full", "log_scan", "exit_every4", "no_exit", "no_scan",
             "no_matmul", "dma_only", "grid_only")
@@ -77,14 +78,13 @@ NC = 3
 _T_FLOOR = math.exp(-80.0)
 _EXIT_T = 1e-4
 
-launches = 0
-"""Launches of the CUDA kernel B5 made by :func:`variant_cuda` (the plain
-version does not count)."""
+LAUNCHES = "b5.launches"
+"""The counter (``utils.metrics``) of the launches of the CUDA kernel B5
+made by :func:`variant_cuda` (the plain version does not count)."""
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    metrics.reset(LAUNCHES)
 
 
 def _check(records, starts, counts, ids, cfg: RenderConfig, variant: str):
@@ -113,7 +113,6 @@ def variant_cuda(records, tile_starts, tile_counts, tile_ids,
     """Launch B5's ``variant`` on the current stream; inputs as B1's
     (``cuda_rasterize.composite_fwd``) with NC = 3, all on one CUDA device.
     Returns ``(colors [T, P, 3], t [T, P, 1], exit_k [T] int32)``."""
-    global launches
     _check(records, tile_starts, tile_counts, tile_ids, cfg, variant)
     cr.check_cuda_launch(records, "variant_cuda")
     fn = _kernel()
@@ -134,7 +133,7 @@ def variant_cuda(records, tile_starts, tile_counts, tile_ids,
     if err != 0:
         raise RuntimeError(f"kernel_bench kernel ({variant}) launch failed: "
                            f"CUDA error {err}")
-    launches += 1
+    metrics.add(LAUNCHES)
     return colors, trans, exit_k
 
 

@@ -13,17 +13,91 @@ Viewer.js:1804-1822) and ad-hoc performance.now() spans around the sort
   CUDA device).
 - :func:`profile_trace` — context manager around ``torch.profiler`` that
   writes a Chrome trace (chrome://tracing, Perfetto) into ``logdir``.
+- :func:`span` (and the decorator :func:`traced`) — a named range of the render or the training step in that
+  trace (``gs.render``, ``gs.train.step``, ``gs.project``, ``gs.bin``,
+  ``gs.backward``, ``gs.composite.bwd``, ``gs.bin.gather_bwd``); a shared
+  null context unless a ``torch.profiler`` records.
+- The counter registry: :func:`add` (always on, a Python int: the kernel
+  wrappers' launches, ``b1.launches`` ... ``b5.launches``),
+  :func:`observe` (only while a profiler records: binning's ``bin.calls``,
+  ``bin.slots``, ``bin.pairs_kept``, ``bin.dropped``), :func:`total`,
+  :func:`totals` and :func:`reset`.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import time
 from typing import Optional
 
 import torch
+
+_NULL_SPAN = contextlib.nullcontext()
+# name -> a Python int (add) or the values observed while tracing (a list
+# of ints and 0-d device tensors, summed when read)
+_counters: dict = {}
+
+
+def span(name: str):
+    """``record_function(name)`` while a profiler records (on any thread,
+    autograd's backward included), else one shared null context: off, a
+    span allocates nothing and launches nothing."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NULL_SPAN
+
+
+def traced(name: str):
+    """Decorator: the function's every call runs inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def add(name: str, n: int = 1) -> None:
+    """Add ``n`` to an always-on counter."""
+    _counters[name] = _counters.get(name, 0) + n
+
+
+def observe(name: str, value) -> None:
+    """Record a Python int or a 0-d integer tensor under ``name`` while a
+    profiler records; nothing otherwise.  A tensor is kept as it is (no
+    read of the device, no kernel) until :func:`totals`."""
+    if torch._C._autograd._profiler_enabled():
+        _counters.setdefault(name, []).append(value)
+
+
+def totals() -> dict:
+    """Every counter's total, as Python ints; the observed tensors are
+    summed on the host after one read of the device."""
+    tensors = [v for vals in _counters.values() if isinstance(vals, list)
+               for v in vals if isinstance(v, torch.Tensor)]
+    read = iter(torch.stack(tensors).tolist() if tensors else [])
+    out = {}
+    for name, vals in _counters.items():
+        if isinstance(vals, list):
+            vals = sum(next(read) if isinstance(v, torch.Tensor) else v
+                       for v in vals)
+        out[name] = int(vals)
+    return out
+
+
+def total(name: str) -> int:
+    """One counter's total (0 if nothing was counted)."""
+    return totals().get(name, 0)
+
+
+def reset(*names: str) -> None:
+    """Clear the named counters, or every counter when none is named."""
+    for name in names or list(_counters):
+        _counters.pop(name, None)
 
 
 @dataclasses.dataclass

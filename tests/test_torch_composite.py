@@ -29,6 +29,7 @@ from gaussiansplats3d_tpu.render import projection as proj_j
 from gaussiansplats3d_tpu.render import rasterize
 from gaussiansplats3d_tpu.render.pipeline import chans_from_colors_logt
 from gaussiansplats3d_tpu_torch.render import cuda_rasterize as cr
+from gaussiansplats3d_tpu_torch.utils import metrics
 
 from torch_port_common import (WALK_SUB, WALK_TILE, both_scenes,  # noqa: F401
                                cuda_device, cull_case, edge_pairs,
@@ -275,12 +276,13 @@ def test_wrapper_cpu_path_checks_and_no_gradient():
     rec = torch.tensor(records, requires_grad=True)
     starts, counts = torch.tensor(starts), torch.tensor(counts)
     ids = torch.arange(4, dtype=torch.int32)
-    before = (cr.launches, cr.bwd_launches)
+    before = (metrics.total(cr.LAUNCHES), metrics.total(cr.BWD_LAUNCHES))
     chans, logt, exit_k = cr.composite_tiles(cfg, rec, starts, counts, ids)
     gch = torch.randn(chans.shape, generator=torch.Generator().manual_seed(3))
     (chans * gch).sum().backward()
     # the plain versions count nothing
-    assert (cr.launches, cr.bwd_launches) == before
+    assert (metrics.total(cr.LAUNCHES),
+            metrics.total(cr.BWD_LAUNCHES)) == before
     np.testing.assert_array_equal(rec.grad.numpy(), cr.composite_bwd(
         rec.detach(), starts, counts, ids, logt, exit_k, gch, cfg).numpy())
     assert float(rec.grad[:9, 300:350].abs().min(dim=1).values.max()) > 0.0
@@ -310,10 +312,10 @@ def test_cuda_b2_matches_plain(cuda_device, depth):
     chans, logt, exit_k = cr.composite_fwd(*inputs, cfg_t)
     gch = 0.1 * torch.randn(chans.shape, device=cuda_device,
                             generator=torch.Generator(cuda_device).manual_seed(4))
-    before = cr.bwd_launches
+    before = metrics.total(cr.BWD_LAUNCHES)
     grad = cr.composite_bwd(*inputs, logt, exit_k, gch, cfg_t)
     torch.cuda.synchronize()
-    assert cr.bwd_launches == before + 1
+    assert metrics.total(cr.BWD_LAUNCHES) == before + 1
     ref = cr.composite_bwd_torch(*inputs, logt, exit_k, gch, cfg_t)
     for p999, over in norm_err(grad.cpu().numpy(), ref.cpu().numpy()):
         assert p999 <= 1e-3 and over <= 1e-3
@@ -476,10 +478,10 @@ def assert_cuda_b1_matches_plain(cfg, inputs):
     """B1 launched once on the card against the plain B1: chans and log T
     p99.9 |d| <= 1e-3 and <= 0.1% over 1e-2, exit_k equal on >= 99% of
     tiles; some pixel composited something."""
-    before = cr.launches
+    before = metrics.total(cr.LAUNCHES)
     chans, logt, exit_k = cr.composite_fwd(*inputs, cfg)
     torch.cuda.synchronize()
-    assert cr.launches == before + 1
+    assert metrics.total(cr.LAUNCHES) == before + 1
     ref = cr.composite_fwd_torch(*inputs, cfg)
     for a, b in ((chans, ref[0]), (logt, ref[1])):
         p999, over = error_mass(a.cpu().numpy(), b.cpu().numpy())
@@ -526,10 +528,10 @@ def assert_cuda_b2_matches_plain(cfg, inputs, device, seed):
     chans, logt, exit_k = cr.composite_fwd(*inputs, cfg)
     gch = 0.1 * torch.randn(chans.shape, device=device,
                             generator=torch.Generator(device).manual_seed(seed))
-    before = cr.bwd_launches
+    before = metrics.total(cr.BWD_LAUNCHES)
     grad = cr.composite_bwd(*inputs, logt, exit_k, gch, cfg)
     torch.cuda.synchronize()
-    assert cr.bwd_launches == before + 1
+    assert metrics.total(cr.BWD_LAUNCHES) == before + 1
     ref = cr.composite_bwd_torch(*inputs, logt, exit_k, gch, cfg)
     for p999, over in norm_err(grad.cpu().numpy(), ref.cpu().numpy()):
         assert p999 <= 1e-3 and over <= 1e-3

@@ -21,6 +21,7 @@ import gaussiansplats3d_tpu as gs
 import gaussiansplats3d_tpu_torch as gt
 from gaussiansplats3d_tpu_torch.render import cuda_rasterize as cr
 from gaussiansplats3d_tpu_torch.render import pipeline as pipe_t
+from gaussiansplats3d_tpu_torch.utils import metrics
 
 from torch_port_common import (both_cameras, both_scenes, cuda_device,  # noqa: F401
                                error_mass, interpret_pallas, scene_arrays)
@@ -96,7 +97,7 @@ def test_render_batch_assembly_and_errors():
     # a camera facing away sees only the background
     assert torch.equal(outs["color"][1], torch.ones(H, W, 3))
     assert float(outs["alpha"][1].abs().max()) == 0.0
-    before = (cr.launches, cr.bwd_launches)
+    before = (metrics.total(cr.LAUNCHES), metrics.total(cr.BWD_LAUNCHES))
     with pytest.raises(ValueError):
         gt.render(s_t, cam_t, cfg.replace(backend="cuda"))
     s_t.means.requires_grad_(True)
@@ -105,7 +106,8 @@ def test_render_batch_assembly_and_errors():
     assert bool(torch.isfinite(s_t.means.grad).all())
     assert float(s_t.means.grad.abs().max()) > 0.0
     # the CPU path never launches a kernel
-    assert (cr.launches, cr.bwd_launches) == before
+    assert (metrics.total(cr.LAUNCHES),
+            metrics.total(cr.BWD_LAUNCHES)) == before
 
 
 @pytest.mark.parametrize("backend,prec,depth", [
@@ -267,11 +269,12 @@ def test_cuda_side_65_matches_cpu_render(cuda_device):
         cam = gt.Camera.from_numpy(np.asarray(cam_j.view),
                                    np.asarray(cam_j.proj),
                                    np.asarray(cam_j.cam_pos), device=dev)
-        before = (cr.launches, cr.bwd_launches)
+        before = (metrics.total(cr.LAUNCHES), metrics.total(cr.BWD_LAUNCHES))
         outs.append(gt.render(s, cam, cfg, return_aux=True))
         expect = 1 if dev != "cpu" else 0
-        assert (cr.launches, cr.bwd_launches) == (before[0] + expect,
-                                                  before[1])
+        assert (metrics.total(cr.LAUNCHES),
+                metrics.total(cr.BWD_LAUNCHES)) == (before[0] + expect,
+                                                    before[1])
     assert int(outs[1]["num_pairs"]) == int(outs[0]["num_pairs"]) > 0
     assert float(outs[0]["alpha"].max()) > 0.0
     _assert_close(outs[1], {k: v.numpy() for k, v in outs[0].items()},
@@ -290,9 +293,9 @@ def _assert_cuda_gradients_match_cpu(cuda_device, cfg):
         cam = gt.Camera.from_numpy(np.asarray(cam_j.view),
                                    np.asarray(cam_j.proj),
                                    np.asarray(cam_j.cam_pos), device=dev)
-        before = (cr.launches, cr.bwd_launches)
+        before = (metrics.total(cr.LAUNCHES), metrics.total(cr.BWD_LAUNCHES))
         _image_loss(gt.render(s, cam, cfg), True).backward()
-        after = (cr.launches, cr.bwd_launches)
+        after = (metrics.total(cr.LAUNCHES), metrics.total(cr.BWD_LAUNCHES))
         expect = 1 if dev != "cpu" else 0
         assert after == (before[0] + expect, before[1] + expect)
         grads.append({f: getattr(s, f).grad.cpu().numpy() for f in FIELDS})
@@ -308,7 +311,7 @@ def test_cuda_render_matches_cpu_render(cuda_device):
     cam_j = gs.Camera.look_at((2.5, 1.5, 2.5), (0, 0, 0), fov_y_deg=60,
                               aspect=4 / 3)
     outs = []
-    before = cr.launches
+    before = metrics.total(cr.LAUNCHES)
     for dev in ("cpu", cuda_device):
         s = gt.SplatData.from_numpy(*arrays, device=dev)
         cam = gt.Camera.from_numpy(np.asarray(cam_j.view),
@@ -316,6 +319,7 @@ def test_cuda_render_matches_cpu_render(cuda_device):
                                    np.asarray(cam_j.cam_pos), device=dev)
         outs.append(gt.render(s, cam, gt.RenderConfig(
             width=256, height=192, sh_degree=1, return_depth=True)))
-    assert cr.launches == before + 1       # the CUDA render ran kernel B1
+    # the CUDA render ran kernel B1
+    assert metrics.total(cr.LAUNCHES) == before + 1
     _assert_close(outs[1], {k: v.numpy() for k, v in outs[0].items()},
                   KEYS + ("depth",))

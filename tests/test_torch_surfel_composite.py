@@ -29,6 +29,7 @@ from gaussiansplats3d_tpu.render import pallas_surfel as ps
 from gaussiansplats3d_tpu.render import surfel as surfel_j
 from gaussiansplats3d_tpu_torch import _build
 from gaussiansplats3d_tpu_torch.render import cuda_surfel as cs
+from gaussiansplats3d_tpu_torch.utils import metrics
 
 from torch_port_common import (WALK_SUB, WALK_TILE, both_cameras,  # noqa: F401
                                both_scenes, cuda_device, cull_case,
@@ -222,14 +223,15 @@ def test_wrapper_cpu_path_autograd_and_checks():
     rec = torch.tensor(recs.T.copy(), requires_grad=True)
     starts, counts = torch.tensor(starts), torch.tensor(counts)
     ids = torch.arange(4, dtype=torch.int32)
-    before = (cs.launches, cs.bwd_launches)
+    before = (metrics.total(cs.LAUNCHES), metrics.total(cs.BWD_LAUNCHES))
     col, logt, exit_k = cs.composite_surfel_tiles(cfg, rec, starts, counts,
                                                   ids)
     gen = torch.Generator().manual_seed(64)
     gcol = torch.randn(col.shape, generator=gen)
     glogt = torch.randn(logt.shape, generator=gen)
     ((col * gcol).sum() + (logt * glogt).sum()).backward()
-    assert (cs.launches, cs.bwd_launches) == before
+    assert (metrics.total(cs.LAUNCHES),
+            metrics.total(cs.BWD_LAUNCHES)) == before
     np.testing.assert_array_equal(rec.grad.numpy(), cs.composite_surfel_bwd(
         rec.detach(), starts, counts, ids, logt.detach(), exit_k, gcol,
         glogt, cfg).numpy())
@@ -377,10 +379,10 @@ def assert_cuda_b3_matches_plain(cfg, inputs):
     """B3 launched once on the card against the plain B3: colors and log T
     p99.9 |d| <= 1e-3 and <= 0.1% over 1e-2, exit_k equal on >= 99% of
     tiles; some pixel composited something."""
-    before = cs.launches
+    before = metrics.total(cs.LAUNCHES)
     col, logt, exit_k = cs.composite_surfel_fwd(*inputs, cfg)
     torch.cuda.synchronize()
-    assert cs.launches == before + 1
+    assert metrics.total(cs.LAUNCHES) == before + 1
     ref = cs.composite_surfel_fwd_torch(*inputs, cfg)
     for a, b in ((col, ref[0]), (logt, ref[1])):
         p999, over = error_mass(a.cpu().numpy(), b.cpu().numpy())
@@ -428,10 +430,10 @@ def assert_cuda_b4_matches_plain(cfg, inputs, device, seed):
     gen = torch.Generator(device).manual_seed(seed)
     gcol = 0.1 * torch.randn(col.shape, device=device, generator=gen)
     glogt = 0.1 * torch.randn(logt.shape, device=device, generator=gen)
-    before = cs.bwd_launches
+    before = metrics.total(cs.BWD_LAUNCHES)
     grad = cs.composite_surfel_bwd(*inputs, logt, exit_k, gcol, glogt, cfg)
     torch.cuda.synchronize()
-    assert cs.bwd_launches == before + 1
+    assert metrics.total(cs.BWD_LAUNCHES) == before + 1
     ref = cs.composite_surfel_bwd_torch(*inputs, logt, exit_k, gcol, glogt,
                                         cfg)
     for p999, over in norm_err(grad.cpu().numpy(), ref.cpu().numpy()):
@@ -508,7 +510,7 @@ def test_cuda_b3_b4_match_plain(cuda_device, depth):
     _, cfg_t, recs, starts, counts = jax_binned(depth=depth, n=3000,
                                                 size=192, seed=65)
     inputs = port_inputs(recs, starts, counts, device=cuda_device)
-    before = (cs.launches, cs.bwd_launches)
+    before = (metrics.total(cs.LAUNCHES), metrics.total(cs.BWD_LAUNCHES))
     col, logt, exit_k = cs.composite_surfel_fwd(*inputs, cfg_t)
     gen = torch.Generator(cuda_device).manual_seed(66)
     gcol = 0.1 * torch.randn(col.shape, device=cuda_device, generator=gen)
@@ -516,7 +518,8 @@ def test_cuda_b3_b4_match_plain(cuda_device, depth):
     grad = cs.composite_surfel_bwd(*inputs, logt, exit_k, gcol, glogt,
                                    cfg_t)
     torch.cuda.synchronize()
-    assert (cs.launches, cs.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert (metrics.total(cs.LAUNCHES),
+            metrics.total(cs.BWD_LAUNCHES)) == (before[0] + 1, before[1] + 1)
     ref = cs.composite_surfel_fwd_torch(*inputs, cfg_t)
     for a, b in ((col, ref[0]), (logt, ref[1])):
         p999, over = error_mass(a.cpu().numpy(), b.cpu().numpy())
@@ -544,12 +547,13 @@ def test_cuda_render_2d_matches_cpu(cuda_device):
         for f in FIELDS:
             getattr(s, f).requires_grad_(True)
         _, cam = both_cameras(cam_j, device=dev)
-        before = (cs.launches, cs.bwd_launches)
+        before = (metrics.total(cs.LAUNCHES), metrics.total(cs.BWD_LAUNCHES))
         out = gt.render(s, cam, cfg)
         ((out["color"] ** 2).mean() + (out["depth"] ** 2).mean()).backward()
         expect = 1 if dev != "cpu" else 0
-        assert (cs.launches, cs.bwd_launches) == (before[0] + expect,
-                                                  before[1] + expect)
+        assert (metrics.total(cs.LAUNCHES),
+                metrics.total(cs.BWD_LAUNCHES)) == (before[0] + expect,
+                                                    before[1] + expect)
         outs.append({k: v.detach().cpu().numpy() for k, v in out.items()})
         grads.append({f: getattr(s, f).grad.cpu().numpy() for f in FIELDS})
     for k in ("color", "alpha", "depth"):

@@ -175,7 +175,7 @@ def test_b5_wrapper_checks_and_counts():
         kb.variant_cuda(*args, cfg_t, "full")
     kb.reset_launches()
     kb.build_variant(cfg_t, "full")(*args)      # the plain version
-    assert kb.launches == 0
+    assert metrics.total(kb.LAUNCHES) == 0
 
 
 def test_kernel_bench_main_prints_every_variant(monkeypatch):
@@ -354,10 +354,10 @@ def assert_cuda_b5_matches_plain(args):
     version: colors and T normalised by the plain max, p99.9 <= 1e-3 and
     <= 0.1% over 1e-2; exit_k equal on >= 99% of tiles."""
     for v in kb.VARIANTS:
-        before = kb.launches
+        before = metrics.total(kb.LAUNCHES)
         got = kb.variant_cuda(*args, v)
         torch.cuda.synchronize()
-        assert kb.launches == before + 1
+        assert metrics.total(kb.LAUNCHES) == before + 1
         ref = kb.composite_variant_torch(*args, v)
         for a, b in zip(got[:2], ref[:2]):
             scale = max(float(b.abs().max()), 1e-30)

@@ -30,6 +30,7 @@ from gaussiansplats3d_tpu.utils.metrics import FrameStats as FrameStatsJ
 from gaussiansplats3d_tpu.viewer import helpers as hj
 from gaussiansplats3d_tpu.viewer.fade import VisibleRegion as RegionJ
 from gaussiansplats3d_tpu_torch import viewer as vt
+from gaussiansplats3d_tpu_torch.utils import metrics
 from gaussiansplats3d_tpu_torch.utils.metrics import FrameStats as FrameStatsT
 from gaussiansplats3d_tpu_torch.viewer import helpers as ht
 from gaussiansplats3d_tpu_torch.viewer.fade import VisibleRegion as RegionT
@@ -505,7 +506,7 @@ def test_cuda_viewer_matches_cpu(cuda_device, mode):
         out.append(v.render())
         pair = v.render_stereo(0.3)
         out += [pair["left"], pair["right"]]
-        launches = (cr.launches, cs.launches)
+        launches = (metrics.total(cr.LAUNCHES), metrics.total(cs.LAUNCHES))
         v.visible_region.fade_start_radius = v.visible_region.radius
         last = v.render()
         assert v.render() is last
