@@ -19,20 +19,29 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    from the work this run's data needs, and for each of B1-B4 how many of
    the pair-warp visits its per-warp cull keeps (the plain mirror,
    cuda_rasterize.kept_pair_warps).  B2's cotangent is that of
-   mean(color^2) at B1's chans;
+   mean(color^2) at B1's chans.  Then the record gather's backward
+   (csrc/gather_bwd.cu) at the benchmark's sizes, the garden (5M splats,
+   SH 2, aux 1.5) and the truck in 2D (1M surfels), with the cotangent
+   of bench.py's step and a random one: against its plain version and
+   index_add_, bit equal across two calls, its ms beside index_add_'s
+   and its bound;
 3. the serving path: render() of 2M random splats (seeded, the JAX
    package's bench.py scene), SH degree 1, 1920x1080, tile 32, sort_bits
    16, under torch.no_grad(), with the default record precision ('mixed')
    and with the serving mode ('packed', forward_only, aux_multiplier 0.3 as
    bench.py serves it), RENDERS times each; the launch counters are zeroed
-   just before and read just after: B1 once a render, B2 never;
+   just before and read just after: B1 once a render, B2 and the record
+   gather's backward never;
 4. a stage breakdown of one render (CUDA events) and a torch.profiler
    view of it: device time, the device's idle share, the top kernels;
 5. the training path, bench.py's step (_grad_step_msplats): the gradient
    of mean(color^2) with respect to all five SplatData fields at the same
    scene, in 'mixed' and in train-packed ('packed', gradients on), a
    warm-up and STEPS timed steps each; counters zeroed just before and read
-   just after: B1 and B2 once a step; every gradient finite and nonzero;
+   just after: B1 and B2 once a step, the record gather's backward's two
+   kernels once (as in phase 6's Adam steps, phase 8's 2D steps and phase
+   11's sharded steps; the {"gather_bwd": ...} line has each path's
+   reading); every gradient finite and nonzero;
    median step time, Msplats/s as bench.py computes it, peak memory; a
    stage breakdown of the forward and the backward and a torch.profiler
    view of one step;
@@ -152,7 +161,8 @@ Phases, each of which raises on failure (nonzero exit, no result line):
    of this run (no clusters: None).
 
 Prints a {"native": ...} line (the build, phase 10's loads, phase 12), a
-{"kernels": [...]} line, and last {"ok": true, "device": ...}.
+{"kernels": [...]} line, a {"gather_bwd": ...} line, and last {"ok": true,
+"device": ...}.
 It has no CPU mode: without a CUDA device it exits 1.
 """
 
@@ -705,6 +715,156 @@ def check_b2_all(cr, splats, cam, cfg):
             "library_ms": None, "per_config": per_config}
 
 
+# the record gather's backward (csrc/gather_bwd.cu) at the benchmark's
+# sizes: the garden (5M splats, SH 2, 1080p, aux 1.5) and the truck in 2D
+# (1M surfels, SH 1, 800 x 600, the default aux 0.25), 'mixed' records
+GATHER_SCENES = (("garden", 5_000_000, 2, 1920, 1080, 1.5, False),
+                 ("truck-2d", 1_000_000, 1, 800, 600, 0.25, True))
+GATHER_REPS = 20
+GATHER_RTOL = 1e-6
+
+
+def gather_inputs(gt, name, n, sh, width, height, aux, mode_2d, device):
+    """One backward of bench.py's step (mean(color^2)) through render() on
+    a scene of the benchmark's size: the record gather's (src, perm,
+    layout) and the cotangent its backward received (B2's or B4's)."""
+    from gaussiansplats3d_tpu_torch.render import binning
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    splats = gt.random_splats(gen, n, sh_degree=sh, extent=2.0,
+                              device=device)
+    splats.scales = splats.scales * 0.15
+    cam = gt.Camera.look_at((4.5, 2.5, 4.5), (0.0, 0.0, 0.0),
+                            fov_y_deg=60.0, aspect=width / height,
+                            device=device)
+    cfg = gt.RenderConfig(width=width, height=height, sh_degree=sh,
+                          sort_bits=16, aux_multiplier=aux,
+                          render_mode_2d=mode_2d)
+    calls, cots = [], []
+    apply, bwd = binning._Gather.apply, binning.gather_bwd
+
+    def recording_apply(fields, src, perm, layout):
+        calls.append((src, perm, layout))
+        return apply(fields, src, perm, layout)
+
+    def recording_bwd(g, perm, layout):
+        cots.append(g)
+        return bwd(g, perm, layout)
+
+    binning._Gather.apply, binning.gather_bwd = recording_apply, \
+        recording_bwd
+    try:
+        grad_step(gt, grad_splats(gt, splats), cam, cfg)
+    finally:
+        del binning._Gather.apply
+        binning.gather_bwd = bwd
+    (src, perm, layout), = calls
+    g, = cots
+    return src, perm, layout, g
+
+
+def check_gather_bwd(gt, device):
+    """csrc/gather_bwd.cu on each of GATHER_SCENES, with the real
+    cotangent of its step and with a random one: against its plain
+    version (on the card) and against index_add_ in float64, |d| <=
+    GATHER_RTOL times the same sums of |cotangent|; two calls bit equal;
+    the tail's slots as the layout says; 2 launches a call; inside guard
+    zones (tests/torch_gather.py::guarded_gather_bwd) every guard as it
+    was, no NaN and the same bits, so nothing is read or written out of
+    bounds and no row is read before it is written.  Then its ms
+    alone beside index_add_'s (the library_ms yardstick: autograd's
+    backward of index_select), the plain version's and the bytes bound
+    (the cotangent, perm and the table read once, d written once)."""
+    from gaussiansplats3d_tpu_torch.render import binning
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_gather import guarded_gather_bwd
+    out = {}
+    for name, n, sh, width, height, aux, mode_2d in GATHER_SCENES:
+        src, perm, layout, g_real = gather_inputs(
+            gt, name, n, sh, width, height, aux, mode_2d, device)
+        f, s = g_real.shape
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        g_rand = torch.randn((f, s), generator=gen, device=device)
+        kept = min(int(layout.covered), layout.aux_cap)
+        tail_want = layout.aux_cap - kept + layout.pad
+        res = {"splats": n, "rows": f, "slots": s, "lanes": layout.lanes,
+               "aux_cap": layout.aux_cap, "covered": int(layout.covered),
+               "pad": layout.pad, "tail_slots": tail_want}
+        for kind, g in (("real", g_real), ("random", g_rand)):
+            before = launch_count(binning.LAUNCHES)
+            d1, t1 = binning.gather_bwd_cuda(g, perm, layout)
+            d2, _ = binning.gather_bwd_cuda(g, perm, layout)
+            torch.cuda.synchronize()
+            launches = launch_count(binning.LAUNCHES) - before
+            if launches != 4:
+                raise AssertionError(f"gather_bwd {name}: {launches} "
+                                     f"launches in 2 calls")
+            if not torch.equal(d1.view(torch.int32), d2.view(torch.int32)):
+                raise AssertionError(f"gather_bwd {name} {kind}: two calls "
+                                     f"differ")
+            if int(t1) != tail_want:
+                raise AssertionError(f"gather_bwd {name}: tail {int(t1)} "
+                                     f"slots, the layout says {tail_want}")
+            d_g, t_g, intact = guarded_gather_bwd(g, perm, layout)
+            if not (intact and int(t_g) == tail_want
+                    and torch.equal(d_g.view(torch.int32),
+                                    d1.view(torch.int32))):
+                raise AssertionError(
+                    f"gather_bwd {name} {kind}: inside guard zones, guards "
+                    f"intact {intact}, NaN {bool(torch.isnan(d_g).any())}, "
+                    f"the same bits {torch.equal(d_g, d1)}")
+            del d_g
+            res["launches_per_call"] = launches // 2
+            plain, _ = binning.gather_bwd_torch(g, perm, layout)
+            g64 = g.double()
+            ref = g64.new_zeros((f, n)).index_add_(1, src, g64)
+            scale = g64.abs().new_zeros((f, n)).index_add_(1, src,
+                                                           g64.abs())
+            del g64
+            errs = {}
+            for who, d in (("kernel", d1), ("plain", plain)):
+                rel = ((d.double() - ref).abs()
+                       / torch.clamp(scale, min=1e-300))
+                errs[who] = float(rel.max())
+                if errs[who] > GATHER_RTOL:
+                    raise AssertionError(f"gather_bwd {name} {kind}: {who} "
+                                         f"off index_add_ by {errs[who]} "
+                                         f"of the sums of |g|")
+            res[kind] = {"max_rel_err": errs,
+                         "kernel_vs_plain_max_abs": float(
+                             (d1 - plain).abs().max()),
+                         "splat0_kernel": float(d1[:, 0].abs().sum()),
+                         "splat0_ref": float(ref[:, 0].abs().sum())}
+            del ref, scale, plain, d1, d2
+        g = g_real
+        res["ms"] = cuda_ms(lambda: binning.gather_bwd_cuda(g, perm, layout),
+                            GATHER_REPS)
+        res["library_ms"] = cuda_ms(
+            lambda: g.new_zeros((f, n)).index_add_(1, src, g), 3)
+        res["plain_ms"] = cuda_ms(
+            lambda: binning.gather_bwd_torch(g, perm, layout), 3)
+        b_cap = layout.offs_c.shape[0]
+        nbytes = 4 * f * s + 8 * s + 8 * n + 16 * b_cap + 4 * f * n
+        res["bytes"] = nbytes
+        res["bound_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+        log(f"gather_bwd {name}: {f} x {s} slots onto {n} splats (tail "
+            f"{tail_want} slots): {res['ms']:.3f} ms alone, index_add_ "
+            f"{res['library_ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, "
+            f"bound {res['bound_ms']:.4f} ms (bytes); max rel err real "
+            f"{res['real']['max_rel_err']}, random "
+            f"{res['random']['max_rel_err']}")
+        out[name] = res
+        del src, perm, layout, g_real, g_rand, g
+        torch.cuda.empty_cache()
+    return {"name": "gather_bwd", "route": "cuda",
+            "source": "gaussiansplats3d_tpu_torch/csrc/gather_bwd.cu",
+            "replaces": "index_add_ (autograd's index_select backward); the "
+                        "JAX package's _expand_sort_bwd, "
+                        "gaussiansplats3d_tpu/render/binning.py:699",
+            "launches_per_call": sorted({r["launches_per_call"]
+                                         for r in out.values()}),
+            "per_scene": out}
+
+
 def train_configs_of(cfg):
     """The two configurations the training path is driven in, as bench.py
     times them: the default record precision, and train-packed (packed
@@ -725,7 +885,8 @@ def configs_of(cfg):
 
 def main_path(gt, cr, splats, cam, cfg):
     """RENDERS renders per configuration through render(), with the launch
-    counter zeroed just before and read just after.  A render's enqueue
+    counters zeroed just before and read just after: B1 once a render, the
+    record gather's backward never.  A render's enqueue
     time is the host's time until render() returns (it waits for nothing
     on the device); when it is close to the wall time, the host bounds
     the frame."""
@@ -739,6 +900,7 @@ def main_path(gt, cr, splats, cam, cfg):
         for name, c in configs:
             torch.cuda.reset_peak_memory_stats()
             before = launch_count(cr.LAUNCHES)
+            zero_gather()
             times, enqueue = [], []
             for _ in range(RENDERS):
                 t0 = time.perf_counter()
@@ -747,6 +909,7 @@ def main_path(gt, cr, splats, cam, cfg):
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
             launches = launch_count(cr.LAUNCHES) - before
+            gather_launches(f"render {name} tile {c.tile_size}", 0)
             color, alpha = out["color"], out["alpha"]
             if color.shape != (HEIGHT, WIDTH, 3) or alpha.shape != (HEIGHT,
                                                                     WIDTH):
@@ -869,7 +1032,7 @@ def grad_step(gt, s, cam, cfg):
 def train_path(gt, cr, splats, cam, cfg):
     """STEPS timed steps per training configuration after a warm-up, with
     the launch counters zeroed just before and read just after: B1 and B2
-    once a step.  Msplats/s as bench.py computes it (N / step s / 1e6),
+    once a step, the record gather's backward's 2 kernels once.  Msplats/s as bench.py computes it (N / step s / 1e6),
     from the median step."""
     s = grad_splats(gt, splats)
     configs = train_configs_of(cfg)
@@ -881,6 +1044,7 @@ def train_path(gt, cr, splats, cam, cfg):
     for name, c in configs:
         torch.cuda.reset_peak_memory_stats()
         before = (launch_count(cr.LAUNCHES), launch_count(cr.BWD_LAUNCHES))
+        zero_gather()
         times = []
         for _ in range(STEPS):
             t0 = time.perf_counter()
@@ -889,6 +1053,8 @@ def train_path(gt, cr, splats, cam, cfg):
             times.append((time.perf_counter() - t0) * 1e3)
         launches = (launch_count(cr.LAUNCHES) - before[0],
                     launch_count(cr.BWD_LAUNCHES) - before[1])
+        gather_n = gather_launches(f"train_step {name} tile {c.tile_size}",
+                                   2 * STEPS)
         grads = {}
         for f in FIELDS:
             g = getattr(s, f).grad
@@ -904,14 +1070,15 @@ def train_path(gt, cr, splats, cam, cfg):
                / 1e6,
                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
                "launches_b1": launches[0], "launches_b2": launches[1],
-               "grad_max_abs": grads}
+               "launches_gather_bwd": gather_n, "grad_max_abs": grads}
         results[name] = res
         log(f"train step {name}: median {med:.2f} ms over {STEPS} steps "
             f"({', '.join(f'{x:.2f}' for x in times)}); "
             f"{res['msplats_per_s']:.3f} Msplats/s (mean-based "
             f"{res['msplats_per_s_mean']:.3f}); peak memory "
             f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; B1 launches "
-            f"{launches[0]}, B2 launches {launches[1]}; max |grad| "
+            f"{launches[0]}, B2 launches {launches[1]}, gather_bwd launches "
+            f"{gather_n}; max |grad| "
             + ", ".join(f"{k} {v:.3e}" for k, v in grads.items()))
         if launches != (STEPS, STEPS):
             raise AssertionError(f"{launches} launches of (B1, B2) in "
@@ -927,7 +1094,7 @@ def train_stage_breakdown(gt, cr, splats, cam, cfg):
     """Milliseconds of each stage of one training step in each training
     configuration, stage by stage (CUDA events): the forward stages, then
     the backward cut at the records (assembly + B2, B2 alone) and at the
-    projected fields (the gather's scatter-add and codecs), then the
+    projected fields (the gather's backward and codecs), then the
     projection's backward."""
     from gaussiansplats3d_tpu_torch.render import pipeline
     from gaussiansplats3d_tpu_torch.render.binning import bin_sort_records
@@ -1038,13 +1205,15 @@ def adam_steps(cr, splats, cam, cfg, steps=3):
     """A few Adam steps through make_train_step at the main path's size,
     towards a black image: finite losses that fall, the compositor's
     forward and backward kernels once a step (``cr``: the module of B1 and
-    B2, or of B3 and B4 for a 2D cfg)."""
+    B2, or of B3 and B4 for a 2D cfg), the record gather's backward's 2
+    kernels once."""
     from gaussiansplats3d_tpu_torch.parallel import train
     state = train.TrainState.create(splats, train.adam(1e-3))
     step = train.make_train_step(cfg, None, train.adam(1e-3))
     tiles, mask = train.image_to_tile_blocks(
         torch.zeros((HEIGHT, WIDTH, 3), device=splats.device), cfg)
     cr.reset_launches()
+    zero_gather()
     losses, times = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -1055,9 +1224,12 @@ def adam_steps(cr, splats, cam, cfg, steps=3):
             raise AssertionError(f"make_train_step: loss {losses[-1]}, "
                                  f"grad_norm {float(m['grad_norm'])}")
     launches = (launch_count(cr.LAUNCHES), launch_count(cr.BWD_LAUNCHES))
+    gather_n = gather_launches(
+        f"make_train_step{' 2d' if cfg.render_mode_2d else ''}", 2 * steps)
     log(f"make_train_step at 2M{' in 2D' if cfg.render_mode_2d else ''}: "
         f"losses {losses}, step ms {[round(t, 2) for t in times]}, "
-        f"(forward, backward kernel) launches {launches}")
+        f"(forward, backward kernel) launches {launches}, gather_bwd "
+        f"launches {gather_n}")
     if launches != (steps, steps) or not losses[-1] < losses[0]:
         raise AssertionError("make_train_step did not train")
     return {"losses": losses, "times_ms": times}
@@ -1437,6 +1609,31 @@ def launch_count(name: str) -> int:
     return metrics.total(name)
 
 
+# path -> launches of the record gather's backward read there, for the
+# {"gather_bwd": ...} line
+GATHER_LAUNCHES = {}
+
+
+def zero_gather():
+    """Zero the record gather's backward's launch counter
+    (``binning.LAUNCHES``, 2 a backward)."""
+    from gaussiansplats3d_tpu_torch.render import binning
+    from gaussiansplats3d_tpu_torch.utils import metrics
+    metrics.reset(binning.LAUNCHES)
+
+
+def gather_launches(path, expect):
+    """The record gather's backward's launches since zero_gather(), added
+    to GATHER_LAUNCHES under ``path``; raises unless ``expect``."""
+    from gaussiansplats3d_tpu_torch.render import binning
+    n = launch_count(binning.LAUNCHES)
+    GATHER_LAUNCHES[path] = GATHER_LAUNCHES.get(path, 0) + n
+    if n != expect:
+        raise AssertionError(f"{path}: the record gather's backward "
+                             f"launched {n} kernels, expected {expect}")
+    return n
+
+
 def kernel_launches(cr, cs):
     """(B1, B2, B3, B4) launch counts."""
     return tuple(launch_count(name) for name in (
@@ -1451,12 +1648,13 @@ def reset_all(cr, cs):
 def main_path_2d(gt, cr, cs, splats, cam, cfg):
     """2D serving: RENDERS renders through render() under no_grad, the
     counters zeroed just before and read just after: B3 once a render, B1,
-    B2 and B4 never."""
+    B2, B4 and the record gather's backward never."""
     with torch.no_grad():
         gt.render(splats, cam, cfg)                 # warm-up, not counted
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_all(cr, cs)
+        zero_gather()
         times, enqueue = [], []
         for _ in range(RENDERS):
             t0 = time.perf_counter()
@@ -1465,6 +1663,7 @@ def main_path_2d(gt, cr, cs, splats, cam, cfg):
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         launches = kernel_launches(cr, cs)
+        gather_launches(f"render_2d tile {cfg.tile_size}", 0)
     color, alpha = out["color"], out["alpha"]
     if color.shape != (HEIGHT, WIDTH, 3) or alpha.shape != (HEIGHT, WIDTH):
         raise AssertionError(f"2D image shapes {color.shape} {alpha.shape}")
@@ -1522,13 +1721,15 @@ def stage_breakdown_2d(splats, cam, cfg):
 def train_path_2d(gt, cr, cs, splats, cam, cfg):
     """bench.py's step in 2D: STEPS timed steps after a warm-up, the
     counters zeroed just before and read just after: B3 and B4 once a
-    step, B1 and B2 never.  Every gradient finite and nonzero but
+    step, the record gather's backward's 2 kernels once, B1 and B2 never.
+    Every gradient finite and nonzero but
     scales[:, 2], which surfels never read: exactly 0."""
     s = grad_splats(gt, splats)
     grad_step(gt, s, cam, cfg)                      # warm-up, not counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_all(cr, cs)
+    zero_gather()
     times = []
     for _ in range(STEPS):
         t0 = time.perf_counter()
@@ -1536,6 +1737,8 @@ def train_path_2d(gt, cr, cs, splats, cam, cfg):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     launches = kernel_launches(cr, cs)
+    gather_n = gather_launches(f"train_step_2d tile {cfg.tile_size}",
+                               2 * STEPS)
     grads = {}
     for f in FIELDS:
         g = getattr(s, f).grad
@@ -1552,12 +1755,13 @@ def train_path_2d(gt, cr, cs, splats, cam, cfg):
     res = {"median_ms": med, "times_ms": times,
            "msplats_per_s": N_SPLATS / (med / 1e3) / 1e6,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-           "launches_b1_b2_b3_b4": launches, "grad_max_abs": grads}
+           "launches_b1_b2_b3_b4": launches,
+           "launches_gather_bwd": gather_n, "grad_max_abs": grads}
     log(f"2D train step: median {med:.2f} ms over {STEPS} steps "
         f"({', '.join(f'{x:.2f}' for x in times)}); "
         f"{res['msplats_per_s']:.3f} Msplats/s; peak memory "
         f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; (B1, B2, B3, B4) "
-        f"launches {launches}; max |grad| "
+        f"launches {launches}, gather_bwd launches {gather_n}; max |grad| "
         + ", ".join(f"{k} {v:.3e}" for k, v in grads.items())
         + "; scales[:, 2] exactly 0")
     if launches != (0, 0, STEPS, STEPS):
@@ -2523,7 +2727,8 @@ def sharded_renders(gt, par, tally, mesh, splats, cam, cfg):
 
 def sharded_steps(par, tally, mesh, splats, cam, cfg):
     """(a) the sharded training step on the 1x1 mesh, 3D 'mixed' (B1 and
-    B2 once a step) and 2D (B3 and B4), its first loss against the
+    B2 once a step) and 2D (B3 and B4), the record gather's backward's 2
+    kernels once a step, its first loss against the
     single-device step's on the same parameters.  Returns the results and
     the 3D state for the checkpoint."""
     from gaussiansplats3d_tpu_torch.parallel import train
@@ -2541,6 +2746,7 @@ def sharded_steps(par, tally, mesh, splats, cam, cfg):
             par.device_put_sharded_splats(splats, mesh), train.adam(1e-3))
         step = par.make_train_step(c, mesh, train.adam(1e-3))
         losses, times = [], []
+        zero_gather()
         for _ in range(STEPS):
             (state, m), ms = tally(f"sharded_train_step_{name}",
                                    lambda: wall_ms(lambda: step(
@@ -2548,6 +2754,8 @@ def sharded_steps(par, tally, mesh, splats, cam, cfg):
                                    expect, f"sharded step {name}")
             losses.append(float(m["loss"]))
             times.append(ms)
+        # one slab a step on the 1x1 mesh: one gather
+        gather_launches(f"sharded_train_step_{name}", 2 * STEPS)
         rel = abs(losses[0] - float(m1["loss"])) / abs(float(m1["loss"]))
         log(f"sharded train step 1x1 {name}: losses {losses}, median "
             f"{float(np.median(times)):.2f} ms ({[round(t, 2) for t in times]}"
@@ -2748,7 +2956,7 @@ def config4(par, tally, mesh, device):
     """(c) BASELINE.json config 4 on one card: 16M splats (bench.py's
     scene), SH0, 1920x1080, train-packed through make_train_step on the
     1x1 mesh; a warm-up and CONFIG4_STEPS timed steps (B1 and B2 once a
-    step), finite loss and gradients, overflow, ms, Msplats/s, peak
+    step, the record gather's backward's 2 kernels once), finite loss and gradients, overflow, ms, Msplats/s, peak
     memory."""
     import gaussiansplats3d_tpu_torch as gt
     from gaussiansplats3d_tpu_torch.parallel import train
@@ -2770,12 +2978,14 @@ def config4(par, tally, mesh, device):
     state, _ = step(state, cam, tiles, mask)             # warm-up
     torch.cuda.synchronize()
     losses, times = [], []
+    zero_gather()
     for _ in range(CONFIG4_STEPS):
         (state, m), ms = tally("config4_train_step", lambda: wall_ms(
             lambda: step(state, cam, tiles, mask)), (1, 1, 0, 0, 0),
             "config 4 step")
         losses.append(float(m["loss"]))
         times.append(ms)
+    gather_launches("config4_train_step", 2 * CONFIG4_STEPS)
     finite = all(bool(torch.isfinite(p.grad).all())
                  for p in state.params.parameters())
     peak = torch.cuda.max_memory_allocated()
@@ -3312,6 +3522,7 @@ def main():
     splats, cam, cfg = make_scene(gt, device)
     b1 = check_b1_all(cr, splats, cam, cfg)
     b2 = check_b2_all(cr, splats, cam, cfg)
+    gather = check_gather_bwd(gt, device)
     cs.reset_launches()
     runs, launches = main_path(gt, cr, splats, cam, cfg)
     b1["main_path"] = runs
@@ -3439,6 +3650,8 @@ def main():
         b1[f"tile_{side}_seconds"] = res["seconds"]
     log(json.dumps({"native": NATIVE}))
     log(json.dumps({"kernels": [b1, b2, b3, b4, b5]}))
+    gather["launches_by_path"] = GATHER_LAUNCHES
+    log(json.dumps({"gather_bwd": gather}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -34,7 +34,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("composite_fwd", "composite_bwd", "surfel_fwd", "surfel_bwd",
-           "kernel_bench")
+           "kernel_bench", "gather_bwd")
 # No --use_fast_math: __expf/__logf would flip the compositor's hard
 # thresholds (min_alpha, the 0.999 clamp, the 1e-4 exit).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

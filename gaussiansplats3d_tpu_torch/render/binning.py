@@ -29,11 +29,17 @@ quantised positions and radii, as the compositor will read them.
 
 Gradients: every codec is straight-through (its forward bits, the
 cotangent passed on unchanged in float32, as the JAX package's "packing is
-forward-only"), and the record gather's backward is a scatter-add of each
-pair's cotangent into its source splat.  That stands in for the JAX
-package's alignment sort; its bf16 packing of the non-position cotangents
-under ``mixed``/``packed`` is a TPU saving that the port does not copy.
-The support box (rx, ry) and the rects stay gradient-free.
+forward-only").  The record gather's backward (:func:`gather_bwd`) is the
+JAX package's alignment: it un-sorts the pair cotangents to their source
+slots by the sort's permutation and reduces them by the slot layout
+(:class:`SlotLayout`): the lanes as ``[N]`` slices summed, the aux region
+as segment sums over the big-splat table, and the tail (unused aux slots
+and pad, which all name splat 0) as one fixed-order sum onto splat 0.  On
+a CUDA device it is the hand-written kernel ``csrc/gather_bwd.cu``, with
+no atomics, so its bits repeat from call to call.  The JAX package's bf16
+packing of the non-position cotangents under ``mixed``/``packed`` is a
+TPU saving that the port does not copy.  The support box (rx, ry) and the
+rects stay gradient-free.
 
 The sharded path bins one tile slab at a time (:func:`slab_window`): a
 band of whole tile rows (``tile_range``; tile ids relative to its first
@@ -46,6 +52,7 @@ S stays static, so nothing here waits for the device.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from dataclasses import dataclass
@@ -58,6 +65,14 @@ from ..utils import metrics
 from .projection import ProjectedSplats, quantize_depth
 
 CHUNK = 128                     # pair chunk of the compositor kernel
+
+LAUNCHES = "gather_bwd.launches"
+"""The counter (``utils.metrics``) of the CUDA kernel launches of the
+record gather's backward made by :func:`gather_bwd_cuda`: two a call (the
+plain version does not count)."""
+# the rows of partial tail sums that gather_bwd_cuda allocates; the
+# kernel's first launch runs at most one block a row
+_BWD_PARTIAL_ROWS = 1024
 
 _F16_SCALE = 16.0               # radius fixed point: 1/16 px, exact in u16
 _PX_SCALE = 8.0                 # packed-mode position fixed point: 1/8 px
@@ -382,23 +397,198 @@ def _record_fields(proj: ProjectedSplats, cfg: RenderConfig, rx, ry):
                                 rad_round_u8(ry)]
 
 
+@dataclass
+class SlotLayout:
+    """The slot layout of one :func:`expand_sort` call, what the record
+    gather's backward reduces by: ``S = lanes * n + aux_cap + pad`` slots.
+    Slot ``k * n + i`` of lane k names splat i.  Aux slot ``lanes * n +
+    t`` names the splat of the big-splat table's row r whose segment
+    ``[offs_c[r], offs_c[r] + counts_c[r])`` holds t; ``dest[i]`` is splat
+    i's row, or ``b_cap`` (the table's length) if it has none.  The aux
+    slots from ``covered`` (the table's last end) on and the pad slots name
+    splat 0: the table then has rows to spare, and its last row is empty
+    and names 0.  Without an aux region the table's tensors are None."""
+
+    n: int
+    lanes: int
+    aux_cap: int
+    pad: int
+    dest: torch.Tensor | None = None        # [n] int64
+    offs_c: torch.Tensor | None = None      # [b_cap] int64
+    counts_c: torch.Tensor | None = None    # [b_cap] int64
+    covered: torch.Tensor | None = None     # [] int64
+
+    @property
+    def slots(self) -> int:
+        return self.lanes * self.n + self.aux_cap + self.pad
+
+
+def gather_bwd_torch(g, perm, layout: SlotLayout):
+    """The plain PyTorch version of :func:`gather_bwd`, on any device and
+    float dtype: un-sort the cotangents (``g[:, inv]``, ``inv[perm[j]] =
+    j``), sum the lanes in order, the aux segments by
+    ``torch.segment_reduce``, and add the tail onto splat 0 last."""
+    f, s = g.shape
+    n, lanes, aux_cap = layout.n, layout.lanes, layout.aux_cap
+    body = lanes * n
+    inv = torch.empty(s, dtype=torch.int64, device=g.device)
+    inv[perm] = torch.arange(s, device=g.device)
+    aligned = g[:, inv]
+    d = aligned[:, :n].clone()
+    for k in range(1, lanes):
+        d += aligned[:, k * n:(k + 1) * n]
+    kept = 0
+    if layout.dest is not None:
+        kept = min(int(layout.covered), aux_cap)
+        offsets = torch.cat([torch.clamp(layout.offs_c, max=aux_cap),
+                             torch.tensor([kept], device=g.device)])
+        seg = torch.segment_reduce(aligned[:, body:body + kept].T, "sum",
+                                   offsets=offsets, axis=0)     # [b_cap, f]
+        ids = torch.nonzero(layout.dest < layout.offs_c.shape[0])[:, 0]
+        d[:, ids] = d[:, ids] + seg[layout.dest[ids]].T
+    if s > body + kept:
+        d[:, 0] += aligned[:, body + kept:].sum(dim=1)
+    return d, aux_cap - kept + layout.pad
+
+
+def _check_gather_bwd(g, perm, layout: SlotLayout):
+    """Raise unless csrc/gather_bwd.cu takes these inputs: g ``[F, S]``
+    float32 (F <= 32), perm ``[S]`` int64, the table's tensors int64 of
+    their lengths (given iff aux_cap > 0), all contiguous on one CUDA
+    device.  Lean: it runs once a training step, on the host's path."""
+    if g.dtype != torch.float32 or g.dim() != 2 or not g.is_contiguous():
+        raise ValueError("the cotangent must be a contiguous 2-D float32 "
+                         "tensor")
+    f, s = g.shape
+    if not 1 <= f <= 32 or s != layout.slots:
+        raise ValueError(f"cotangent {tuple(g.shape)} does not fit the "
+                         f"layout of {layout.slots} slots (at most 32 "
+                         f"rows)")
+    want = [(perm, (s,))]
+    if layout.aux_cap:
+        b_cap = layout.offs_c.shape[0]
+        want += [(layout.dest, (layout.n,)), (layout.offs_c, (b_cap,)),
+                 (layout.counts_c, (b_cap,)), (layout.covered, ())]
+    elif layout.dest is not None:
+        raise ValueError("a big-splat table without an aux region")
+    dev = g.device
+    for t, shape in want:
+        if (t.dtype != torch.int64 or t.shape != shape or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"perm and the big-splat table must be "
+                             f"contiguous int64 on {dev}: got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device} "
+                             f"for {shape}")
+    if not g.is_cuda:
+        raise ValueError("gather_bwd_cuda needs CUDA tensors")
+
+
+def row_width(f: int) -> int:
+    """The floats of a slot row of csrc/gather_bwd.cu's aligned
+    cotangents for f record rows: whole 32-byte sectors (16 for the 3D
+    records' 11 or 12 rows, 24 for the surfels' 17 or 18), so that no
+    scattered row shares a sector with another.  On an H100 the garden
+    cell's backward took 2.39 ms with 48-byte rows, 1.67 with 64."""
+    return 8 * (-(-f // 8))
+
+
+@functools.cache
+def _bwd_kernel():
+    """csrc/gather_bwd.cu's C entry point, built and loaded on first use."""
+    from .. import _build
+    fn = _build.load("gather_bwd").gather_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+                    ctypes.c_int]
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 3
+                   + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 3)
+    return fn
+
+
+def launch_gather_bwd(g, perm, layout: SlotLayout, aligned, partials, d,
+                      tail):
+    """csrc/gather_bwd.cu's two kernels on the current stream, into the
+    buffers given: ``aligned [lanes * n + aux_cap, row_width(F)]`` and
+    ``partials [rows, row_width(F)]`` float32 scratch (the first kernel
+    runs at most ``rows`` blocks), ``d [F, n]`` float32 and ``tail []``
+    int64, all contiguous on g's device.  g, perm and layout as
+    :func:`gather_bwd`, checked by the caller."""
+    f, s = g.shape
+    dev = g.device
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _bwd_kernel()(
+            g.data_ptr(), f, aligned.shape[1], s, perm.data_ptr(), layout.n,
+            layout.lanes, layout.aux_cap, layout.pad, ptr(layout.dest),
+            ptr(layout.offs_c), ptr(layout.counts_c),
+            layout.offs_c.shape[0] if layout.dest is not None else 0,
+            ptr(layout.covered), aligned.data_ptr(), partials.data_ptr(),
+            partials.shape[0], d.data_ptr(), tail.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"gather_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+    metrics.add(LAUNCHES, 2)
+
+
+def gather_bwd_cuda(g, perm, layout: SlotLayout):
+    """Launch csrc/gather_bwd.cu's two kernels on the current stream.
+    Inputs as :func:`gather_bwd`, on one CUDA device; returns ``(d [F, n]
+    float32, tail slots [] int64)``."""
+    _check_gather_bwd(g, perm, layout)
+    f, s = g.shape
+    dev = g.device
+    d = torch.empty((f, layout.n), dtype=torch.float32, device=dev)
+    if s == 0:          # no splats and no aux region: nothing to launch
+        return d, torch.tensor(0, device=dev)
+    # one scratch allocation: the aligned rows, then the tail's partials
+    rows = layout.lanes * layout.n + layout.aux_cap
+    scratch = torch.empty((rows + _BWD_PARTIAL_ROWS, row_width(f)),
+                          dtype=torch.float32, device=dev)
+    tail = torch.empty((), dtype=torch.int64, device=dev)
+    launch_gather_bwd(g, perm, layout, scratch[:rows], scratch[rows:], d,
+                      tail)
+    return d, tail
+
+
+def gather_bwd(g, perm, layout: SlotLayout):
+    """The gradient of ``fields.index_select(1, src)`` for the cotangent
+    ``g [F, S]`` of the sorted records, where ``src`` is the source splat
+    of slot ``perm[j]`` (the sort's permutation) under ``layout``: ``(d
+    [F, n], the slots folded into splat 0 by the tail)``.  Every slot's
+    cotangent reaches its splat, those outside every tile's window too, so
+    it is the exact gradient for any cotangent.  CUDA tensors launch
+    :func:`gather_bwd_cuda`; CPU tensors take :func:`gather_bwd_torch`."""
+    if g.is_cuda:
+        return gather_bwd_cuda(g, perm, layout)
+    return gather_bwd_torch(g, perm, layout)
+
+
 class _Gather(torch.autograd.Function):
-    """The record gather ``fields.index_select(1, src)``; its backward
-    scatter-adds each slot's cotangent into its source column, as
-    autograd's own backward of ``index_select`` (the same kernels), inside
-    the span ``gs.bin.gather_bwd``."""
+    """The record gather ``fields.index_select(1, src)``, ``src`` the
+    source splat of each sorted slot; its backward (:func:`gather_bwd`)
+    un-sorts the pair cotangents by ``perm`` and reduces them by the slot
+    ``layout``, inside the span ``gs.bin.gather_bwd``, and observes the
+    tail's slots as ``bin.bwd_tail``."""
 
     @staticmethod
-    def forward(ctx, fields, src):
-        ctx.save_for_backward(src)
-        ctx.shape = fields.shape
+    def forward(ctx, fields, src, perm, layout):
+        ctx.save_for_backward(perm)
+        ctx.layout = layout
         return fields.index_select(1, src)
 
     @staticmethod
     def backward(ctx, grad):
         with metrics.span("gs.bin.gather_bwd"):
-            src, = ctx.saved_tensors
-            return grad.new_zeros(ctx.shape).index_add_(1, src, grad), None
+            perm, = ctx.saved_tensors
+            d, tail = gather_bwd(grad.contiguous(), perm, ctx.layout)
+            metrics.observe("bin.bwd_tail", tail)
+            return d, None, None, None
 
 
 def expand_sort(cfg: RenderConfig, tx0, ty0, wt, ht, counts, depth_q,
@@ -416,7 +606,8 @@ def expand_sort(cfg: RenderConfig, tx0, ty0, wt, ht, counts, depth_q,
     Returns ``(records [F, S], tile_starts, tile_counts, total_pairs,
     overflow)``; row ``opa_row`` of records is 0 at every slot outside the
     tiles' windows.  The gather is differentiable: its backward
-    scatter-adds each pair's cotangent into its source splat.
+    (:func:`gather_bwd`) sends each pair's cotangent to its source splat by
+    the slot layout.
     """
     dev = depth_q.device
     n = depth_q.shape[0]
@@ -435,6 +626,7 @@ def expand_sort(cfg: RenderConfig, tx0, ty0, wt, ht, counts, depth_q,
     total_aux = counts_aux.sum()
     kept_aux = 0
     iota_n = torch.arange(n, device=dev)
+    table = ()
 
     tiles = [t for t, _ in lane_defs]
     valids = [v for _, v in lane_defs]
@@ -471,6 +663,7 @@ def expand_sort(cfg: RenderConfig, tx0, ty0, wt, ht, counts, depth_q,
         depths.append(depth_q[sid])
         srcs.append(sid)
         overflow = total_aux - kept_aux
+        table = (dest, offs_c, counts_c, covered)
     else:
         overflow = total_aux
     if pad:
@@ -497,7 +690,8 @@ def expand_sort(cfg: RenderConfig, tx0, ty0, wt, ht, counts, depth_q,
     sorted_tile = sorted_key >> shift
     src = torch.cat(srcs)[perm]
 
-    records = _Gather.apply(torch.stack(fields), src)
+    layout = SlotLayout(n, lanes, aux_cap, pad, *table)
+    records = _Gather.apply(torch.stack(fields), src, perm, layout)
     records[opa_row] = torch.where(sorted_tile < num_tiles, records[opa_row],
                                    torch.zeros_like(records[opa_row]))
 

@@ -10,7 +10,8 @@
 The path is differentiable with respect to every ``SplatData`` field:
 autograd runs the projection's and assembly's backward, the compositor's
 backward is kernel B2 (its plain version on the CPU), and binning passes
-each pair's cotangent to its splat (straight-through codecs, scatter-add).
+each pair's cotangent to its splat (straight-through codecs, the record
+gather's backward ``binning.gather_bwd``).
 
 With ``cfg.render_mode_2d`` the 2DGS surfel mode takes the same four steps
 through ``surfel.surfel_tiles``: ``project_surfels``, ``bin_sort_surfels``,

@@ -12,8 +12,8 @@ kernel paths:
 - the depth channel's 4-wide record layout;
 - the 2DGS surfel kernels (ray-plane fragment + hand-derived transpose),
   with and without the depth channel;
-- the binning backward alone (straight-through codecs, the gather's
-  scatter-add), card against CPU;
+- the binning backward alone (straight-through codecs, the record
+  gather's backward), card against CPU;
 - a kernel-boundary case at 1M splats, 512x384.
 
 Two comparisons per render case:
@@ -217,11 +217,11 @@ def _mass_gate(failures, label, what, err, bar):
 def run_binning_backward(precision, label):
     """Card-vs-CPU parity of bin_sort_records' BACKWARD alone:
     records-level cotangents in, projected-splat gradients out (the
-    straight-through codecs and the gather's scatter-add), bypassing the
-    projection chain.  The projection is computed once on the card and
+    straight-through codecs and the record gather's backward), bypassing
+    the projection chain.  The projection is computed once on the card and
     copied, so both sides see the same bits; cotangent weights are an
     integer hash (no transcendentals), so the only legitimate divergence is
-    float32 reassociation in the scatter-add."""
+    float32 reassociation in the gather's sums."""
     import gaussiansplats3d_tpu_torch as gt
     from ..render.binning import bin_sort_records
     from ..render.projection import project_splats

@@ -10,10 +10,12 @@ Viewer.js:1804-1822), extended to the backward pass the reference does
 not have.  On a CUDA device every time is taken with CUDA events after a
 warm-up call (mean of 5); with ``--cpu`` with the host clock.
 
-The JAX tool's "bwd alignment sort" timed a TPU workaround; the port's
-binning backward is the record gather's scatter-add instead, and that is
-what the line in its place times: the cotangents of the nine
-differentiable record rows, scatter-added from the S slots into N splats.
+The JAX tool's "bwd alignment sort" times the alignment of the binning
+backward; the port's counterpart is the record gather's backward
+(``render/binning.py::gather_bwd``, ``csrc/gather_bwd.cu`` on a CUDA
+device), and the line in its place times it alone: a cotangent of ones
+on every record row and slot, un-sorted by the binning's own permutation
+and reduced by its slot layout into N splats.
 
 Usage:
     python -m gaussiansplats3d_tpu_torch.tools.profile_stages [N] [options]
@@ -40,6 +42,27 @@ _DIFF = ("xs", "ys", "conic_a", "conic_b", "conic_c", "col_r", "col_g",
          "col_b", "opacity")
 
 
+def gather_residuals(proj, cfg):
+    """The sort's permutation and the slot layout that
+    ``bin_sort_records(proj, cfg)`` hands the record gather
+    (``binning._Gather``), from one call."""
+    from ..render import binning
+    got = []
+    apply = binning._Gather.apply
+
+    def capture(fields, src, perm, layout):
+        got.append((perm, layout))
+        return apply(fields, src, perm, layout)
+
+    binning._Gather.apply = capture
+    try:
+        with torch.no_grad():
+            binning.bin_sort_records(proj, cfg)
+    finally:
+        del binning._Gather.apply
+    return got[0]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("n", nargs="?", type=float, default=2_000_000)
@@ -59,6 +82,7 @@ def main(argv=None):
     device = torch.device("cpu" if args.cpu else "cuda")
 
     import gaussiansplats3d_tpu_torch as gt
+    from ..render import binning
     from ..render.binning import bin_sort_records
     from ..render.pipeline import assemble_image, composite_sorted, render
     from ..render.projection import project_splats
@@ -118,22 +142,16 @@ def main(argv=None):
     print(f"  composite bwd        {t_comp_bwd:8.3f} ms   (grad - fwd)",
           flush=True)
 
-    # the gather's scatter-add alone: the nine differentiable rows' [S]
-    # cotangents into [N] splats at random sources
-    gen = torch.Generator(device=device).manual_seed(1)
-    src = torch.randint(0, max(n, 1), (s_cap,), generator=gen, device=device)
-    gfields = torch.ones((len(_DIFF), s_cap), device=device)
-
-    def scatter_add():
-        return torch.zeros((len(_DIFF), n), device=device).index_add_(
-            1, src, gfields)
-
-    t_scatter = ms(scatter_add)
-    print(f"  bwd gather scatter-add {t_scatter:6.3f} ms   "
-          f"({len(_DIFF)} f32 rows @ S={s_cap} into N={n})", flush=True)
+    # the record gather's backward alone, on this binning's permutation
+    # and slot layout
+    perm, layout = gather_residuals(proj, cfg)
+    g_rec = torch.ones((pairs.records.shape[0], s_cap), device=device)
+    t_gather = ms(lambda: binning.gather_bwd(g_rec, perm, layout))
+    print(f"  bwd gather_bwd       {t_gather:8.3f} ms   "
+          f"({g_rec.shape[0]} f32 rows @ S={s_cap} into N={n})", flush=True)
 
     # binning bwd total (straight-through codecs + the gather's
-    # scatter-add), from the records to the projected fields
+    # backward), from the records to the projected fields
     pq = dataclasses.replace(proj, **{
         f: getattr(proj, f).detach().requires_grad_(True) for f in _DIFF})
     leaves = [getattr(pq, f) for f in _DIFF]

@@ -18,10 +18,11 @@ Viewer.js:1804-1822) and ad-hoc performance.now() spans around the sort
   ``gs.backward``, ``gs.composite.bwd``, ``gs.bin.gather_bwd``); a shared
   null context unless a ``torch.profiler`` records.
 - The counter registry: :func:`add` (always on, a Python int: the kernel
-  wrappers' launches, ``b1.launches`` ... ``b5.launches``),
-  :func:`observe` (only while a profiler records: binning's ``bin.calls``,
-  ``bin.slots``, ``bin.pairs_kept``, ``bin.dropped``), :func:`total`,
-  :func:`totals` and :func:`reset`.
+  wrappers' launches, ``b1.launches`` ... ``b5.launches``,
+  ``gather_bwd.launches``), :func:`observe` (only while a profiler
+  records: binning's ``bin.calls``, ``bin.slots``, ``bin.pairs_kept``,
+  ``bin.dropped``, and the record gather's backward's ``bin.bwd_tail``),
+  :func:`total`, :func:`totals` and :func:`reset`.
 """
 
 from __future__ import annotations

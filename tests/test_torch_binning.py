@@ -15,7 +15,13 @@ it there.  Bars, per field, |d| normalised by the field's max |JAX|:
 f32 p99.9 <= 1e-5 (the same sums; the JAX package's aux segments are
 differences of a running prefix sum); mixed and packed p99.9 <= 1e-2 (the
 JAX package rounds every cotangent but the positions' to bf16, a relative
-2^-9 per pair, which the port keeps in float32)."""
+2^-9 per pair, which the port keeps in float32).
+
+The record gather's backward (binning.gather_bwd, its plain version here)
+is held to the gradient of index_select (autograd's index_add_, in
+float64) for a random cotangent over every slot, those outside every
+tile's window too, on each kind of slot layout: |d| <= 1e-6 times the
+same sum of |cotangent| (float32 rounding of the sums)."""
 
 import dataclasses
 
@@ -31,9 +37,13 @@ from gaussiansplats3d_tpu.render import binning as bin_j
 from gaussiansplats3d_tpu.render import projection as proj_j
 from gaussiansplats3d_tpu_torch.render import binning as bin_t
 from gaussiansplats3d_tpu_torch.render import projection as proj_t
+from gaussiansplats3d_tpu_torch.render import surfel as surf_t
 from gaussiansplats3d_tpu_torch.render.projection import ProjectedSplats
 
-from torch_port_common import both_scenes, error_mass, scene_arrays
+from torch_gather import (capture_gathers, guarded_gather_bwd,
+                          index_add_grad, random_gather, tail_slots)
+from torch_port_common import (both_scenes, cuda_device,  # noqa: F401
+                               error_mass, scene_arrays)
 
 DIFF_FIELDS = ("xs", "ys", "conic_a", "conic_b", "conic_c", "col_r", "col_g",
                "col_b", "opacity", "depth")
@@ -265,3 +275,178 @@ def test_sharded_arguments_raise():
                dict(tile_range=(0, 8), row_window=(0, 2, 3))):
         with pytest.raises(ValueError):
             bin_t.bin_sort_records(proj, cfg, **kw)
+
+
+# the record gather's backward: slot layouts by the config, the binning's
+# window arguments and the scene (zoom: close up on large splats)
+GATHER_CASES = {
+    "lanes1": dict(cfg=dict(lanes=1)),
+    "lanes2": dict(cfg=dict(aux_multiplier=1.5)),
+    "lanes4": dict(cfg=dict(lanes=4)),
+    "no_aux": dict(cfg=dict(aux_multiplier=0.0)),
+    "overflow": dict(zoom=True),
+    "aux_capacity": dict(window=dict(aux_capacity=300)),
+    "banded": dict(window=dict(tile_range=(16, 32))),
+    "strided": dict(window=dict(row_window=(1, 3, 4))),
+    "surfel_2d": dict(cfg=dict(render_mode_2d=True, return_depth=True)),
+    "forward_only": dict(cfg=dict(forward_only=True,
+                                  record_precision="packed")),
+    "bit_equal": dict(cfg=dict(aux_multiplier=1.5), repeat=True),
+}
+
+
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_gather_bwd_matches_index_add(case, monkeypatch):
+    spec = GATHER_CASES[case]
+    zoom = spec.get("zoom", False)
+    arrays = scene_arrays(1500, sh_degree=1, seed=28,
+                          scale_mul=6.0 if zoom else 1.0)
+    s_t = gt.SplatData.from_numpy(*arrays, device="cpu")
+    cam = gt.Camera.look_at((1.2, 0.7, 1.2) if zoom else (2.5, 1.5, 2.5),
+                            (0, 0, 0), fov_y_deg=60, aspect=4 / 3,
+                            device="cpu")
+    cfg = gt.RenderConfig(width=256, height=192, sh_degree=1, tile_size=16,
+                          **spec.get("cfg", {}))
+    calls = capture_gathers(monkeypatch)
+    window = spec.get("window", {})
+    with torch.no_grad():
+        if cfg.render_mode_2d:
+            recs = surf_t.bin_sort_surfels(
+                surf_t.project_surfels(s_t, cam, cfg), cfg, **window)[0]
+        else:
+            recs = bin_t.bin_sort_records(proj_t.project_splats(s_t, cam, cfg),
+                                          cfg, **window).records
+    (src, perm, layout), = calls
+    n = s_t.num_splats
+    assert layout.slots == recs.shape[1] and layout.n == n
+    if case == "no_aux":
+        assert layout.dest is None
+    elif case in ("overflow", "aux_capacity"):
+        assert int(layout.covered) > layout.aux_cap       # aux overflows
+    else:
+        assert 0 < int(layout.covered) < layout.aux_cap
+    tail = tail_slots(layout)
+    assert tail > 0 or case in ("overflow", "no_aux")
+
+    gen = torch.Generator().manual_seed(29)
+    g = torch.randn(recs.shape, generator=gen)
+    d, tail_d = bin_t.gather_bwd_torch(g, perm, layout)
+    assert d.dtype == torch.float32 and tail_d == tail
+    ref, scale = index_add_grad(g, src, n)
+    assert bool(((d.double() - ref).abs() <= 1e-6 * scale).all())
+    if spec.get("repeat"):
+        # two calls, and two backward passes through the gather, bit equal
+        again, _ = bin_t.gather_bwd(g, perm, layout)
+        assert torch.equal(d.view(torch.int32), again.view(torch.int32))
+        x = torch.randn((recs.shape[0], n), generator=gen)
+        grads = []
+        for _ in range(2):
+            a = x.clone().requires_grad_(True)
+            bin_t._Gather.apply(a, src, perm, layout).backward(g)
+            grads.append(a.grad)
+        assert torch.equal(grads[0].view(torch.int32),
+                           grads[1].view(torch.int32))
+        assert torch.equal(grads[0], d)
+
+
+def test_gather_bwd_cuda_checks_its_inputs(monkeypatch):
+    """The kernel's wrapper raises on what csrc/gather_bwd.cu does not
+    take: a cotangent off the layout, more than 32 rows, float64, int32
+    indices, CPU tensors."""
+    src, perm, layout = random_gather(monkeypatch, 11, 50, seed=33)
+    s = layout.slots
+    for g, p, match in (
+            (torch.zeros((11, s + 1)), perm, "layout"),
+            (torch.zeros((33, s)), perm, "layout"),
+            (torch.zeros((11, s), dtype=torch.float64), perm, "float32"),
+            (torch.zeros((11, s)), perm.int(), "perm"),
+            (torch.zeros((11, s)), perm, "CUDA")):
+        with pytest.raises(ValueError, match=match):
+            bin_t.gather_bwd_cuda(g, p, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,lanes,aux", [
+    (11, 2, 1.5), (12, 1, 1.5), (17, 4, 1.5), (18, 2, 0.0), (3, 2, 0.05),
+], ids=["3d", "3d_depth_lanes1", "2d_lanes4", "2d_depth_no_aux",
+        "overflow"])
+def test_cuda_gather_bwd_matches_plain_and_index_add(f, lanes, aux,
+                                                     cuda_device,
+                                                     monkeypatch):
+    """csrc/gather_bwd.cu against its plain version and index_add_ for a
+    random cotangent over every slot; two calls bit equal."""
+    src, perm, layout = random_gather(monkeypatch, f, 20000, seed=30 + f,
+                                      device=cuda_device, lanes=lanes,
+                                      aux_multiplier=aux)
+    if aux == 0.05:
+        assert int(layout.covered) > layout.aux_cap
+    gen = torch.Generator(cuda_device).manual_seed(31)
+    g = torch.randn((f, layout.slots), generator=gen, device=cuda_device)
+    d, tail = bin_t.gather_bwd_cuda(g, perm, layout)
+    again, _ = bin_t.gather_bwd_cuda(g, perm, layout)
+    plain, tail_plain = bin_t.gather_bwd_torch(g, perm, layout)
+    torch.cuda.synchronize()
+    assert torch.equal(d.view(torch.int32), again.view(torch.int32))
+    assert int(tail) == tail_plain == tail_slots(layout)
+    ref, scale = index_add_grad(g, src, layout.n)
+    for out in (d, plain):
+        assert bool(((out.double() - ref).abs() <= 1e-6 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f,lanes,aux", [
+    (11, 2, 1.5), (17, 4, 1.5), (18, 2, 0.0), (3, 2, 0.05),
+], ids=["3d", "2d_lanes4", "2d_depth_no_aux", "overflow"])
+def test_cuda_gather_bwd_stays_in_its_buffers(f, lanes, aux, cuda_device,
+                                             monkeypatch):
+    """csrc/gather_bwd.cu inside guard zones (torch_gather.
+    guarded_gather_bwd): every guard as it was, so nothing is written out
+    of bounds; no NaN in d, so no row is read before it is written and no
+    read passes an edge; d bit equal to the wrapper's."""
+    src, perm, layout = random_gather(monkeypatch, f, 20000, seed=40 + f,
+                                      device=cuda_device, lanes=lanes,
+                                      aux_multiplier=aux)
+    gen = torch.Generator(cuda_device).manual_seed(41)
+    g = torch.randn((f, layout.slots), generator=gen, device=cuda_device)
+    d, tail, intact = guarded_gather_bwd(g, perm, layout)
+    want, want_tail = bin_t.gather_bwd_cuda(g, perm, layout)
+    torch.cuda.synchronize()
+    assert intact
+    assert not bool(torch.isnan(d).any())
+    assert torch.equal(d.view(torch.int32), want.view(torch.int32))
+    assert int(tail) == int(want_tail) == tail_slots(layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode_2d", [False, True], ids=["3d", "2d"])
+def test_cuda_gather_bwd_on_the_compositors_cotangent(mode_2d, cuda_device,
+                                                      monkeypatch):
+    """The cotangent B2 (B4 in 2D) hands the gather in a render's
+    backward: the kernel against index_add_, two calls bit equal."""
+    calls = capture_gathers(monkeypatch)
+    cots = []
+    bwd = bin_t.gather_bwd
+
+    def recording(g, perm, layout):
+        cots.append(g)
+        return bwd(g, perm, layout)
+
+    monkeypatch.setattr(bin_t, "gather_bwd", recording)
+    cfg = gt.RenderConfig(width=320, height=192, sh_degree=1,
+                          aux_multiplier=1.5, render_mode_2d=mode_2d)
+    cam = gt.Camera.look_at((2.5, 1.5, 2.5), (0, 0, 0), fov_y_deg=60,
+                            aspect=320 / 192, device=cuda_device)
+    s = gt.SplatData.from_numpy(*scene_arrays(20000, sh_degree=1, seed=32),
+                                device=cuda_device)
+    for name in ("means", "scales", "quats", "colors", "sh"):
+        getattr(s, name).requires_grad_(True)
+    (gt.render(s, cam, cfg)["color"] ** 2).mean().backward()
+    (src, perm, layout), = calls
+    g, = cots
+    assert bool((g != 0).any()) and tail_slots(layout) > 0
+    d, _ = bin_t.gather_bwd_cuda(g, perm, layout)
+    again, _ = bin_t.gather_bwd_cuda(g, perm, layout)
+    torch.cuda.synchronize()
+    assert torch.equal(d.view(torch.int32), again.view(torch.int32))
+    ref, scale = index_add_grad(g, src, layout.n)
+    assert bool(((d.double() - ref).abs() <= 1e-6 * scale).all())

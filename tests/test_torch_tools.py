@@ -202,7 +202,7 @@ def test_profile_stages_prints_every_stage():
     text = out.getvalue()
     for stage in ("project fwd", "bin_sort_records fwd", "composite fwd",
                   "assemble", "FWD total", "composite bwd",
-                  "bwd gather scatter-add", "bin_sort bwd", "project bwd",
+                  "bwd gather_bwd", "bin_sort bwd", "project bwd",
                   "FWD+BWD total", "Msplats/s fwd+bwd"):
         assert stage in text, stage
     for key in ("FWD total", "FWD+BWD total"):

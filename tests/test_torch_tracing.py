@@ -2,7 +2,10 @@
 torch.profiler records, nested as the layers nest inside a render and a
 training step (3D and 2D), binning's counters equal to what render()
 reports, the kernel launch counters in the same registry, and nothing
-that the program computes moved by tracing.  Torch only, on the CPU."""
+that the program computes moved by tracing; the record gather's backward
+against index_select's gradient and its ``bin.bwd_tail``.  On the CPU;
+the card's test (marked ``cuda``) reads the gather's launches and
+kernels inside its span."""
 
 import json
 
@@ -16,12 +19,16 @@ from gaussiansplats3d_tpu_torch.render import binning, surfel
 from gaussiansplats3d_tpu_torch.render.projection import project_splats
 from gaussiansplats3d_tpu_torch.utils import metrics
 
+from torch_gather import (capture_gathers, index_add_grad, random_gather,
+                          tail_slots)
+from torch_port_common import cuda_device  # noqa: F401  (fixture)
 from torch_scenes import scene_arrays
 
 torch.set_num_threads(2)
 
 W, H = 64, 48
-BIN = ("bin.calls", "bin.slots", "bin.pairs_kept", "bin.dropped")
+BIN = ("bin.calls", "bin.slots", "bin.pairs_kept", "bin.dropped",
+       "bin.bwd_tail")
 FIELDS = ("means", "scales", "quats", "colors", "sh")
 MODES = pytest.mark.parametrize("mode_2d", [False, True], ids=["3d", "2d"])
 
@@ -182,22 +189,100 @@ def test_profiled_train_steps_are_bit_equal(mode_2d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("f,n,s", [(11, 7, 128), (17, 300, 1024),
-                                   (3, 1, 5)])
-def test_gather_gradients_equal_index_select(f, n, s, dtype):
-    gen = torch.Generator().manual_seed(f * n + s)
+@pytest.mark.parametrize("f,n,lanes", [(11, 7, 2), (17, 300, 4), (3, 1, 1)])
+def test_gather_gradients_equal_index_select(f, n, lanes, dtype,
+                                             monkeypatch):
+    """The gather's backward is the gradient of index_select, to the
+    rounding of its sums: |d| <= rtol times the same sums of |cotangent|,
+    against autograd's index_add_ in float64.  The unused aux slots and
+    the pad all name column 0."""
+    src, perm, layout = random_gather(monkeypatch, f, n, seed=f * n + lanes,
+                                      lanes=lanes, aux_multiplier=1.5)
+    assert tail_slots(layout) > 0 and bool((src == 0).sum() > lanes)
+    gen = torch.Generator().manual_seed(f * n)
     x = torch.randn(f, n, generator=gen, dtype=dtype)
-    src = torch.randint(0, n, (s,), generator=gen)
-    src[: s // 2] = 0           # unused slots all name column 0
-    cot = torch.randn(f, s, generator=gen, dtype=dtype)
+    cot = torch.randn(f, layout.slots, generator=gen, dtype=dtype)
     a = x.clone().requires_grad_(True)
     b = x.clone().requires_grad_(True)
-    ya = binning._Gather.apply(a, src)
+    ya = binning._Gather.apply(a, src, perm, layout)
     yb = b.index_select(1, src)
     assert torch.equal(ya, yb)
     ya.backward(cot)
     yb.backward(cot)
-    assert torch.equal(a.grad, b.grad)
+    ref, scale = index_add_grad(cot, src, n)
+    rtol = 1e-6 if dtype == torch.float32 else 1e-13
+    for grad in (a.grad, b.grad):
+        assert grad.dtype == dtype
+        assert bool(((grad.double() - ref).abs() <= rtol * scale).all())
+
+
+@MODES
+def test_bwd_tail_counts_the_slots_folded_into_splat_0(mode_2d, monkeypatch):
+    """A profiled training step observes ``bin.bwd_tail`` = aux_cap -
+    min(covered, aux_cap) + pad; the plain backward counts no launch."""
+    calls = capture_gathers(monkeypatch)
+    step, state, tiles, mask = _step_inputs(mode_2d)
+    before = metrics.total(binning.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU]):
+        step(state, _cam(), tiles, mask)
+    (_, _, layout), = calls
+    kept = min(int(layout.covered), layout.aux_cap)
+    got = metrics.totals()
+    assert got["bin.bwd_tail"] == layout.aux_cap - kept + layout.pad > 0
+    assert metrics.total(binning.LAUNCHES) == before
+    metrics.reset("bin.bwd_tail")
+    step(state, _cam(), tiles, mask)            # off: nothing observed
+    assert "bin.bwd_tail" not in metrics.totals()
+
+
+@pytest.mark.cuda
+@MODES
+def test_cuda_gather_bwd_launches_and_span(mode_2d, cuda_device,
+                                           monkeypatch, tmp_path):
+    """On the card a training step's backward launches the gather's two
+    kernels once (``gather_bwd.launches`` 2), observes ``bin.bwd_tail``,
+    and the span ``gs.bin.gather_bwd`` holds both kernels' device time."""
+    calls = capture_gathers(monkeypatch)
+    cfg = _cfg(mode_2d)
+    s = gt.SplatData.from_numpy(*scene_arrays(300, sh_degree=1, seed=3),
+                                device=cuda_device)
+    state = train.TrainState.create(s, train.adam(1e-2))
+    step = train.make_train_step(cfg, None, train.adam(1e-2))
+    target = torch.linspace(0.0, 1.0, H * W * 3,
+                            device=cuda_device).reshape(H, W, 3)
+    tiles, mask = train.image_to_tile_blocks(target, cfg)
+    cam = gt.Camera.look_at((2.2, 1.4, 2.0), (0, 0, 0), aspect=W / H,
+                            device=cuda_device)
+    step(state, cam, tiles, mask)               # builds and warms up
+    torch.cuda.synchronize()
+    calls.clear()
+    before = metrics.total(binning.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, cam, tiles, mask)
+        torch.cuda.synchronize()
+    assert metrics.total(binning.LAUNCHES) - before == 2
+    (_, _, layout), = calls
+    assert metrics.total("bin.bwd_tail") == tail_slots(layout)
+    # the benchmark's attribution (splatbench/spans.py): a kernel belongs
+    # to the span that holds its launch call, by the call's correlation
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    span, = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name") == "gs.bin.gather_bwd"]
+    t0, t1 = float(span["ts"]), float(span["ts"]) + float(span["dur"])
+    held = {e["args"]["correlation"] for e in events
+            if e.get("cat") == "cuda_runtime"
+            and e["name"].startswith("cudaLaunchKernel")
+            and e["tid"] == span["tid"] and t0 <= float(e["ts"]) <= t1}
+    names = {"gather_unsort_kernel", "gather_reduce_kernel"}
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and e["name"].split("<")[0].split("::")[-1] in names]
+    assert {e["name"].split("<")[0].split("::")[-1]
+            for e in kernels} == names and len(kernels) == 2
+    assert all(e["args"]["correlation"] in held for e in kernels)
+    assert sum(float(e["dur"]) for e in kernels) > 0
 
 
 def test_registry_adds_observes_and_resets():
