@@ -21,7 +21,12 @@ what ``shard_map`` does for the JAX package:
   position rows' cotangents in float32 and the rest rounded to bfloat16
   (the JAX package's wire rounding, part of the gradient it computes),
   reduce-scatters them over the splat group (and all-to-alls them back
-  under ``a2a``), and scatter-adds them to their source rows.
+  under ``a2a``), and scatter-adds them to their source rows.  The
+  forward runs inside the span ``gs.exchange``, the backward inside
+  ``gs.exchange.bwd``; while a profiler records, each call observes the
+  counters ``exchange.calls``, ``exchange.kept`` (rows carried),
+  ``exchange.slots`` (the slots they fill, ``ecap`` a block) and
+  ``exchange.dropped`` (rows past ``ecap``).
 - **tile axis**: each rank bins, sorts and composites its slab from the
   gathered rows (:func:`render_slab`) with the slab's global tile ids,
   through the same kernels as the single-device render (B1/B2, or B3/B4
@@ -33,7 +38,8 @@ reduce-scatter's sum over ``splat_shards`` copies, divided by their
 number: ``shard_map``'s transpose divides an unmapped output's cotangent
 so).  Under ``route='gather'`` the splats are replicated over the tile
 axis, so their gradients are all-reduced over the tile group
-(:class:`_ReplicatedOverTile`, the transpose of that replication).
+(:class:`_ReplicatedOverTile`, the transpose of that replication; span
+``gs.allreduce``).
 
 Slabs: ``banded`` gives slab j the tile rows [j r, (j + 1) r); with
 ``interleaved`` slab j owns rows {j, j + t, ...} and its tiles come in
@@ -56,6 +62,7 @@ from ..render.projection import ProjectedSplats, project_splats
 from ..render.surfel import (SurfelProjection, bin_sort_surfels,
                              chans_from_colors_logt,
                              composite_surfels_sorted, project_surfels)
+from ..utils import metrics
 from .mesh import (SPLAT_AXIS, TILE_AXIS, mesh_coordinate, mesh_device,
                    mesh_shape)
 
@@ -240,6 +247,17 @@ def _scatter_back(d: torch.Tensor, exact, rest, my32, my16, src, n_keep):
     d.index_add_(1, src, full)
 
 
+def _observe(n_keep, slots: int, dropped) -> None:
+    """The exchange's counters of one forward call, while a profiler
+    records: ``n_keep`` rows routed (a count per block), ``dropped`` of
+    them past the capacity, into ``slots`` slots."""
+    if metrics.tracing():
+        metrics.observe("exchange.calls", 1)
+        metrics.observe("exchange.kept", n_keep.sum() - dropped)
+        metrics.observe("exchange.slots", slots)
+        metrics.observe("exchange.dropped", dropped)
+
+
 def _grads_of(ctx, d: torch.Tensor, n_fields: int):
     return (None, None) + tuple(
         d[i] if i < d.shape[0] and ctx.needs_input_grad[2 + i] else None
@@ -253,6 +271,7 @@ class _RoutedExchange(torch.autograd.Function):
     valid mask is rebuilt from the gathered keep counts."""
 
     @staticmethod
+    @metrics.traced("gs.exchange")
     def forward(ctx, wire: _Wire, keep, *fields):
         rows = torch.stack(fields)
         block, src, n_keep = compact_rows(rows, keep, wire.ecap)
@@ -263,12 +282,14 @@ class _RoutedExchange(torch.autograd.Function):
         slot = torch.arange(wire.ecap, device=keep.device)
         valid = (slot[None] < nk_g).reshape(-1)
         dropped = torch.clamp(n_keep - wire.ecap, min=0)
+        _observe(n_keep, wire.ecap, dropped)
         ctx.mark_non_differentiable(valid, dropped)
         ctx.save_for_backward(src, n_keep)
         ctx.wire, ctx.n = wire, keep.shape[0]
         return out, valid, dropped
 
     @staticmethod
+    @metrics.traced("gs.exchange.bwd")
     def backward(ctx, g, _gvalid, _gdropped):
         wire = ctx.wire
         src, n_keep = ctx.saved_tensors
@@ -289,6 +310,7 @@ class _RoutedExchangeA2A(torch.autograd.Function):
     cotangents over slabs (a record straddling slabs gets each one's)."""
 
     @staticmethod
+    @metrics.traced("gs.exchange")
     def forward(ctx, wire: _Wire, touch_all, *fields):
         rows = torch.stack(fields)
         t = wire.tile_shards
@@ -307,12 +329,14 @@ class _RoutedExchangeA2A(torch.autograd.Function):
         slot = torch.arange(wire.ecap, device=rows.device)
         valid = (slot[None] < nk_g.reshape(-1, 1)).reshape(-1)
         dropped = torch.clamp(nk - wire.ecap, min=0).sum()
+        _observe(nk, t * wire.ecap, dropped)
         ctx.mark_non_differentiable(valid, dropped)
         ctx.save_for_backward(torch.stack([p[1] for p in parts]), nk)
         ctx.wire, ctx.n = wire, touch_all.shape[1]
         return out, valid, dropped
 
     @staticmethod
+    @metrics.traced("gs.exchange.bwd")
     def backward(ctx, g, _gvalid, _gdropped):
         wire = ctx.wire
         srcs, nk = ctx.saved_tensors
@@ -343,6 +367,7 @@ class _ReplicatedOverTile(torch.autograd.Function):
         return tuple(f.view_as(f) for f in fields)
 
     @staticmethod
+    @metrics.traced("gs.allreduce")
     def backward(ctx, *grads):
         flat = torch.cat([g.reshape(-1) for g in grads])
         dist.all_reduce(flat, group=ctx.group)
@@ -452,41 +477,19 @@ def _depth_bounds(proj, mesh, route: str):
     return -b[0], b[1]
 
 
-def sharded_render_tiles(mesh, splats: SplatData, camera: Camera,
-                         cfg: RenderConfig,
-                         transforms: Optional[torch.Tensor] = None,
-                         scene_indices: Optional[torch.Tensor] = None,
-                         scene_opacities: Optional[torch.Tensor] = None,
-                         scene_visibility: Optional[torch.Tensor] = None,
-                         exchange_capacity: Optional[int] = None,
-                         return_overflow: bool = False,
-                         return_stats: bool = False,
-                         route: str = "gather",
-                         slab_mode: str = "banded"):
-    """This rank's tile slab of the render over ``mesh``.
-
-    Every rank of the mesh calls this with its own shard: ``splats`` (and
-    ``scene_indices``) as :func:`device_put_sharded_splats` (and
-    :func:`local_rows`) place them for ``route``; the camera and the
-    per-scene ``transforms``, ``scene_opacities`` and ``scene_visibility``
-    are the same on every rank.
-
-    ``route``: 'gather' shards the splats over the splat axis (the tile
-    axis replicates them and their projection); 'a2a' shards them over the
-    whole mesh and routes records with an all-to-all first.  ``slab_mode``:
-    'banded' or 'interleaved' (the chans then come in slab-major order).
-    ``exchange_capacity`` defaults to :func:`default_exchange_capacity`
-    (alpha 3, 4 under 'interleaved').
-
-    Returns ``chans [local_tiles, NC + 1, P]`` (alpha last), and with
-    ``return_overflow`` the overflow (exchange drops summed over the mesh
-    plus each slab's pair drops, summed over the slabs), or with
-    ``return_stats`` a dict: ``overflow``, ``slab_pairs`` ([tile_shards]
-    pairs of each slab; 0 in 2D, as the JAX package reports),
-    ``exchange_capacity``, ``gathered_records`` (rows each rank bins),
-    ``exchange_wire_ops`` (float32 rows on the forward wire) and the
-    forward and backward wire megabytes per rank.
-    """
+def slab_pass(mesh, splats: SplatData, camera: Camera, cfg: RenderConfig,
+              transforms: Optional[torch.Tensor] = None,
+              scene_indices: Optional[torch.Tensor] = None,
+              scene_opacities: Optional[torch.Tensor] = None,
+              scene_visibility: Optional[torch.Tensor] = None,
+              exchange_capacity: Optional[int] = None,
+              route: str = "gather", slab_mode: str = "banded"):
+    """A rank's render up to its slab, as :func:`sharded_render_tiles`
+    takes it (the same arguments): the projection of its shard, the depth
+    bounds, the routed exchange and :func:`render_slab`.  Returns
+    ``(proj, slab, dropped, ecap)``: the shard's projection, the
+    :class:`Slab`, the exchange's rows past ``ecap`` (per splat shard and
+    slab) and the capacity taken.  A collective: every rank calls it."""
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     if slab_mode not in SLAB_MODES:
@@ -513,7 +516,7 @@ def sharded_render_tiles(mesh, splats: SplatData, camera: Camera,
     proj = project(splats, camera, cfg, transforms, scene_indices,
                    scene_opacities, scene_visibility)
     dmin, dmax = _depth_bounds(proj, mesh, route)
-    n_wire, n_diff, exact = exchange_plan(cfg)
+    _, n_diff, exact = exchange_plan(cfg)
     wire = _Wire(ecap, n_diff, exact, splat_group, s, tile_group, t)
     fields = exchange_rows(cfg, proj)
     if route == "a2a":
@@ -524,6 +527,52 @@ def sharded_render_tiles(mesh, splats: SplatData, camera: Camera,
         touch = touch_rows(cfg, proj, j, t, slab_mode)
         rows, valid, dropped = _RoutedExchange.apply(wire, touch, *fields)
     slab = render_slab(cfg, rows, valid, j, t, slab_mode, (dmin, dmax))
+    return proj, slab, dropped, ecap
+
+
+def sharded_render_tiles(mesh, splats: SplatData, camera: Camera,
+                         cfg: RenderConfig,
+                         transforms: Optional[torch.Tensor] = None,
+                         scene_indices: Optional[torch.Tensor] = None,
+                         scene_opacities: Optional[torch.Tensor] = None,
+                         scene_visibility: Optional[torch.Tensor] = None,
+                         exchange_capacity: Optional[int] = None,
+                         return_overflow: bool = False,
+                         return_stats: bool = False,
+                         route: str = "gather",
+                         slab_mode: str = "banded"):
+    """This rank's tile slab of the render over ``mesh``.
+
+    Every rank of the mesh calls this with its own shard: ``splats`` (and
+    ``scene_indices``) as :func:`device_put_sharded_splats` (and
+    :func:`local_rows`) place them for ``route``; the camera and the
+    per-scene ``transforms``, ``scene_opacities`` and ``scene_visibility``
+    are the same on every rank.
+
+    ``route``: 'gather' shards the splats over the splat axis (the tile
+    axis replicates them and their projection); 'a2a' shards them over the
+    whole mesh and routes records with an all-to-all first.  ``slab_mode``:
+    'banded' or 'interleaved' (the chans then come in slab-major order).
+    ``exchange_capacity`` defaults to :func:`default_exchange_capacity`
+    (alpha 3, 4 under 'interleaved').  The slab itself is
+    :func:`slab_pass`'s.
+
+    Returns ``chans [local_tiles, NC + 1, P]`` (alpha last), and with
+    ``return_overflow`` the overflow (exchange drops summed over the mesh
+    plus each slab's pair drops, summed over the slabs), or with
+    ``return_stats`` a dict: ``overflow``, ``slab_pairs`` ([tile_shards]
+    pairs of each slab; 0 in 2D, as the JAX package reports),
+    ``exchange_capacity``, ``gathered_records`` (rows each rank bins),
+    ``exchange_wire_ops`` (float32 rows on the forward wire) and the
+    forward and backward wire megabytes per rank.
+    """
+    _, slab, dropped, ecap = slab_pass(
+        mesh, splats, camera, cfg, transforms, scene_indices,
+        scene_opacities, scene_visibility, exchange_capacity, route,
+        slab_mode)
+    s, t = mesh_shape(mesh)
+    splat_group = mesh.get_group(SPLAT_AXIS)
+    tile_group = mesh.get_group(TILE_AXIS)
 
     # dropped is per (splat shard, slab): summed over both axes; the pair
     # drops are computed from the gathered rows, the same on every rank of
@@ -537,11 +586,12 @@ def sharded_render_tiles(mesh, splats: SplatData, camera: Camera,
         return slab.chans
     if return_overflow and not return_stats:
         return slab.chans, overflow
-    pairs = (torch.zeros((), dtype=torch.int64, device=rows.device)
+    pairs = (torch.zeros((), dtype=torch.int64, device=overflow.device)
              if cfg.render_mode_2d
              else (slab.total_pairs - slab.overflow).to(torch.int64))
     slab_pairs = _all_gather(pairs.reshape(1), tile_group, t).reshape(t)
     gathered = s * t * ecap if route == "a2a" else s * ecap
+    n_wire, n_diff, exact = exchange_plan(cfg)
     n_exact = len([i for i in exact if i < n_diff])
     stats = {"overflow": overflow, "slab_pairs": slab_pairs,
              "exchange_capacity": ecap, "gathered_records": gathered,

@@ -15,13 +15,16 @@ Viewer.js:1804-1822) and ad-hoc performance.now() spans around the sort
   writes a Chrome trace (chrome://tracing, Perfetto) into ``logdir``.
 - :func:`span` (and the decorator :func:`traced`) — a named range of the render or the training step in that
   trace (``gs.render``, ``gs.train.step``, ``gs.project``, ``gs.bin``,
-  ``gs.backward``, ``gs.composite.bwd``, ``gs.bin.gather_bwd``); a shared
-  null context unless a ``torch.profiler`` records.
+  ``gs.backward``, ``gs.composite.bwd``, ``gs.bin.gather_bwd``, and the
+  mesh's ``gs.exchange``, ``gs.exchange.bwd``, ``gs.allreduce``); a shared
+  null context unless a ``torch.profiler`` records (:func:`tracing`).
 - The counter registry: :func:`add` (always on, a Python int: the kernel
   wrappers' launches, ``b1.launches`` ... ``b5.launches``,
   ``gather_bwd.launches``), :func:`observe` (only while a profiler
   records: binning's ``bin.calls``, ``bin.slots``, ``bin.pairs_kept``,
-  ``bin.dropped``, and the record gather's backward's ``bin.bwd_tail``),
+  ``bin.dropped``, the record gather's backward's ``bin.bwd_tail``, and
+  the mesh exchange's ``exchange.calls``, ``exchange.kept``,
+  ``exchange.slots``, ``exchange.dropped``),
   :func:`total`, :func:`totals` and :func:`reset`.
 """
 
@@ -42,11 +45,16 @@ _NULL_SPAN = contextlib.nullcontext()
 _counters: dict = {}
 
 
+def tracing() -> bool:
+    """True while a ``torch.profiler`` records."""
+    return torch._C._autograd._profiler_enabled()
+
+
 def span(name: str):
     """``record_function(name)`` while a profiler records (on any thread,
     autograd's backward included), else one shared null context: off, a
     span allocates nothing and launches nothing."""
-    if torch._C._autograd._profiler_enabled():
+    if tracing():
         return torch.profiler.record_function(name)
     return _NULL_SPAN
 
@@ -71,7 +79,7 @@ def observe(name: str, value) -> None:
     """Record a Python int or a 0-d integer tensor under ``name`` while a
     profiler records; nothing otherwise.  A tensor is kept as it is (no
     read of the device, no kernel) until :func:`totals`."""
-    if torch._C._autograd._profiler_enabled():
+    if tracing():
         _counters.setdefault(name, []).append(value)
 
 
