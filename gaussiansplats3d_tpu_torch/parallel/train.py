@@ -11,7 +11,9 @@ Without a mesh, a step renders the tile blocks through
 ``pipeline.render_tiles``, which routes as ``render()`` does (projection,
 binning, kernels B1 and B2 on a CUDA device; with ``cfg.render_mode_2d``
 the surfel path, kernels B3 and B4), takes the masked mean squared error
-of the tile blocks and applies the optimizer.  With a mesh, every rank
+of the tile blocks and applies the optimizer; on a CUDA device the surfel
+route's step is captured into one CUDA graph and replayed
+(:class:`_StepGraph`).  With a mesh, every rank
 renders its slab through ``sharded.sharded_render_tiles`` and takes the
 error over its slab of the targets; the slabs' error sums are summed over
 the tile group and divided by the whole mask's count (every rank holds
@@ -31,6 +33,7 @@ from torch import nn
 
 from ..core.types import Camera, RenderConfig, SplatData
 from ..render.pipeline import render_tiles
+from ..utils import metrics
 from ..utils.metrics import span, traced
 from .mesh import SPLAT_AXIS, TILE_AXIS, mesh_coordinate, mesh_shape
 from .sharded import interleave_tile_order, sharded_render_tiles
@@ -170,6 +173,12 @@ def make_train_step(cfg: RenderConfig, mesh, optimizer,
     ``torch.optim.Optimizer`` (:func:`adam`); it builds the moments of a
     state that has none.
 
+    Without a mesh, with ``cfg.render_mode_2d`` on a CUDA device, the
+    second step on a state captures the step into a CUDA graph, the
+    optimizer given Adam's ``capturable`` form, and later steps replay it
+    (:class:`_StepGraph`); a new state, optimizer or input shape runs
+    eagerly and captures again.
+
     With ``mesh`` (a ``mesh.make_mesh``), every rank of it calls the step
     with its own shard of the parameters (``sharded.device_put_sharded_
     splats`` with ``route``, then :meth:`TrainState.create`): the render is
@@ -191,9 +200,11 @@ def make_train_step(cfg: RenderConfig, mesh, optimizer,
                       exchange_capacity)
 
 
-def _single_step(cfg: RenderConfig, optimizer):
-    @traced("gs.train.step")
-    def step(state: TrainState, camera: Camera, target_tiles, tile_mask):
+def _eager_step(cfg: RenderConfig, optimizer):
+    """The single-device step's work as the host enqueues it, op by op:
+    ``eager(state, camera, target_tiles, tile_mask) -> (loss, grad_norm)``,
+    the state updated in place and its step count left as it was."""
+    def eager(state: TrainState, camera: Camera, target_tiles, tile_mask):
         params = state.params
         if state.opt_state is None:
             state.opt_state = optimizer(params.parameters())
@@ -204,10 +215,126 @@ def _single_step(cfg: RenderConfig, optimizer):
             loss.backward()
         grad_norm = torch.sqrt(sum((g * g).sum() for g in _grads(params)))
         state.opt_state.step()
+        return loss.detach(), grad_norm
+
+    return eager
+
+
+def _single_step(cfg: RenderConfig, optimizer):
+    eager = _eager_step(cfg, optimizer)
+    # the surfel route's step is a chain of small kernels, each enqueued
+    # by the host: on a CUDA device it is captured once and replayed
+    run = _StepGraph(eager) if cfg.render_mode_2d else None
+
+    @traced("gs.train.step")
+    def step(state: TrainState, camera: Camera, target_tiles, tile_mask):
+        if run is None:
+            metrics.observe("train.graph.eager", 1)
+            loss, grad_norm = eager(state, camera, target_tiles, tile_mask)
+        else:
+            loss, grad_norm = run(state, camera, target_tiles, tile_mask)
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, {"loss": loss, "grad_norm": grad_norm}
 
     return step
+
+
+def _make_capturable(opt: torch.optim.Optimizer) -> None:
+    """Give ``opt`` (``torch.optim.Adam``) the form a CUDA graph can
+    capture, with the same constants: each group ``capturable``, each
+    parameter's step count on the parameter's device."""
+    for group in opt.param_groups:
+        group["capturable"] = True
+        for p in group["params"]:
+            st = opt.state.get(p)
+            if st and st["step"].device != p.device:
+                st["step"] = st["step"].to(p.device)
+
+
+def _tensor_sig(t: torch.Tensor) -> tuple:
+    return (t.data_ptr(), tuple(t.shape), t.dtype, t.device)
+
+
+class _StepGraph:
+    """The single-device step as one CUDA graph.
+
+    A call whose state and inputs differ from what the last call left
+    (:meth:`_sig`: the parameters and the optimizer by identity and
+    storage, the optimizer's moments and constants, the inputs' shapes,
+    dtypes and device; the RenderConfig is the step's own) runs ``eager``
+    and drops the graph; the next call
+    with the same ones captures ``eager`` into a graph and replays it, and
+    every later one copies its camera and targets into the graph's
+    inputs and replays.  So the first call on a state builds the
+    optimizer's moments and every lazily made table and kernel library
+    before a capture.  Off a CUDA device every call is eager.  A replay
+    counts what the captured call counted (``metrics.Recording``); the
+    counters ``train.graph.replays``, ``train.graph.captures`` and
+    ``train.graph.eager`` say how the steps ran.  Returns fresh ``(loss,
+    grad_norm)`` tensors on every call."""
+
+    def __init__(self, eager):
+        self.eager = eager
+        self.sig = None          # what the last call left
+        self.graph = self.static = self.out = self.recorded = None
+
+    @staticmethod
+    def _sig(state: TrainState, inputs: tuple):
+        if state.opt_state is None or not all(t.is_cuda for t in inputs):
+            return None
+        opt, params = state.opt_state, state.params
+        plist = list(params.parameters())
+        if not all(p.is_cuda for p in plist):
+            return None
+        consts = tuple(
+            (k, id(v) if isinstance(v, torch.Tensor) else v)
+            for g in opt.param_groups for k, v in sorted(g.items())
+            if k != "params")
+        # the objects themselves: compared by identity, and held, so that
+        # no later object takes their place unseen
+        return (params, opt, consts,
+                tuple(_tensor_sig(p) for p in plist),
+                tuple(_tensor_sig(p) for g in opt.param_groups
+                      for p in g["params"]),
+                tuple(_tensor_sig(t) for st in opt.state.values()
+                      for t in st.values() if isinstance(t, torch.Tensor)),
+                tuple((tuple(t.shape), t.dtype, t.device) for t in inputs))
+
+    def __call__(self, state: TrainState, camera: Camera, target_tiles,
+                 tile_mask):
+        inputs = (camera.view, camera.proj, camera.cam_pos, target_tiles,
+                  tile_mask)
+        sig = self._sig(state, inputs)
+        if sig is None or sig != self.sig:
+            # the graph and every buffer of its memory pool go
+            self.graph = self.static = self.out = self.recorded = None
+            metrics.observe("train.graph.eager", 1)
+            out = self.eager(state, camera, target_tiles, tile_mask)
+            self.sig = self._sig(state, inputs)
+            return out
+        if self.graph is None:
+            self._capture(state, inputs)
+        else:
+            for dst, src in zip(self.static, inputs):
+                dst.copy_(src)
+        self.graph.replay()
+        self.recorded.replay()
+        metrics.observe("train.graph.replays", 1)
+        return tuple(t.clone() for t in self.out)
+
+    def _capture(self, state: TrainState, inputs: tuple) -> None:
+        _make_capturable(state.opt_state)
+        self.static = [t.clone() for t in inputs]
+        view, proj, cam_pos, tiles, mask = self.static
+        state.opt_state.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph()
+        with metrics.recording() as rec, torch.cuda.graph(graph):
+            self.out = self.eager(state, Camera(view=view, proj=proj,
+                                                cam_pos=cam_pos),
+                                  tiles, mask)
+        self.graph, self.recorded = graph, rec
+        self.sig = self._sig(state, inputs)
+        metrics.observe("train.graph.captures", 1)
 
 
 def _mesh_step(cfg: RenderConfig, mesh, optimizer, route: str,

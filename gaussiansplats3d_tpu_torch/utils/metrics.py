@@ -24,8 +24,12 @@ Viewer.js:1804-1822) and ad-hoc performance.now() spans around the sort
   records: binning's ``bin.calls``, ``bin.slots``, ``bin.pairs_kept``,
   ``bin.dropped``, the record gather's backward's ``bin.bwd_tail``, and
   the mesh exchange's ``exchange.calls``, ``exchange.kept``,
-  ``exchange.slots``, ``exchange.dropped``),
-  :func:`total`, :func:`totals` and :func:`reset`.
+  ``exchange.slots``, ``exchange.dropped``, and the training step's CUDA
+  graph's ``train.graph.replays``, ``train.graph.captures``,
+  ``train.graph.eager``), :func:`total`, :func:`totals` and
+  :func:`reset`.
+- :func:`recording` — what a call counts while it is captured into a CUDA
+  graph, kept to be counted again at each replay (:class:`Recording`).
 """
 
 from __future__ import annotations
@@ -43,6 +47,8 @@ _NULL_SPAN = contextlib.nullcontext()
 # name -> a Python int (add) or the values observed while tracing (a list
 # of ints and 0-d device tensors, summed when read)
 _counters: dict = {}
+# the Recording that add and observe write to while a call is captured
+_recording = None
 
 
 def tracing() -> bool:
@@ -72,6 +78,9 @@ def traced(name: str):
 
 def add(name: str, n: int = 1) -> None:
     """Add ``n`` to an always-on counter."""
+    if _recording is not None:
+        _recording.added[name] = _recording.added.get(name, 0) + n
+        return
     _counters[name] = _counters.get(name, 0) + n
 
 
@@ -79,8 +88,47 @@ def observe(name: str, value) -> None:
     """Record a Python int or a 0-d integer tensor under ``name`` while a
     profiler records; nothing otherwise.  A tensor is kept as it is (no
     read of the device, no kernel) until :func:`totals`."""
-    if tracing():
+    if _recording is not None:
+        _recording.observed.append((name, value))
+    elif tracing():
         _counters.setdefault(name, []).append(value)
+
+
+class Recording:
+    """What one call counted while it was captured into a CUDA graph: its
+    adds, and every value it observed, a profiler recording or not.  A
+    capture runs no kernel, so nothing of it is counted then; each replay
+    of the graph counts it again (:meth:`replay`)."""
+
+    def __init__(self):
+        self.added: dict = {}
+        self.observed: list = []
+
+    def replay(self) -> None:
+        """Count a replay of the graph, after it is enqueued: the adds, and
+        while a profiler records the observed values, the tensors among
+        them copied out of the graph's buffers (which the next replay
+        overwrites) by one stack."""
+        for name, n in self.added.items():
+            add(name, n)
+        if not tracing():
+            return
+        tensors = [v for _, v in self.observed if isinstance(v, torch.Tensor)]
+        fresh = iter(torch.stack(tensors).unbind(0) if tensors else ())
+        for name, v in self.observed:
+            observe(name, next(fresh) if isinstance(v, torch.Tensor) else v)
+
+
+@contextlib.contextmanager
+def recording():
+    """Within: :func:`add` and :func:`observe` write to the
+    :class:`Recording` yielded, and count nothing."""
+    global _recording
+    _recording = Recording()
+    try:
+        yield _recording
+    finally:
+        _recording = None
 
 
 def totals() -> dict:
