@@ -15,6 +15,8 @@ carries the compiler's version line and the CPU ``-march=native`` resolves
 to, so a ``_build/`` copied to another host never loads a library built
 for other instructions.
 
+The kernels' entry points are loaded and launched by ``render/launch.py``.
+
 Nothing here runs at import time: this module imports on machines without
 ``nvcc`` or a GPU.
 """
@@ -114,9 +116,9 @@ def max_active_clusters(name: str, arg: int) -> int:
     how many of its 4-block clusters the current CUDA device holds at
     once.  ``arg``: the channels (3 or 4) for B1-B4; 0 (`full`) for B5
     (``kernel_bench``).  Raises RuntimeError on a CUDA error."""
-    fn = getattr(load(name), f"{name}_max_clusters")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    from .render.launch import entry
+    fn = entry(name, f"{name}_max_clusters",
+               (ctypes.c_int, ctypes.POINTER(ctypes.c_int)))
     clusters = ctypes.c_int(0)
     err = fn(arg, ctypes.byref(clusters))
     if err != 0:

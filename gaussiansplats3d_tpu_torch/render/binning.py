@@ -52,7 +52,6 @@ S stays static, so nothing here waits for the device.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from dataclasses import dataclass
@@ -62,6 +61,8 @@ import torch
 
 from ..core.types import RenderConfig
 from ..utils import metrics
+from . import launch
+from .launch import I64, INT, PTR
 from .projection import ProjectedSplats, quantize_depth
 
 CHUNK = 128                     # pair chunk of the compositor kernel
@@ -464,23 +465,17 @@ def _check_gather_bwd(g, perm, layout: SlotLayout):
         raise ValueError(f"cotangent {tuple(g.shape)} does not fit the "
                          f"layout of {layout.slots} slots (at most 32 "
                          f"rows)")
-    want = [(perm, (s,))]
+    want = [("perm", perm, (s,), torch.int64)]
     if layout.aux_cap:
-        b_cap = layout.offs_c.shape[0]
-        want += [(layout.dest, (layout.n,)), (layout.offs_c, (b_cap,)),
-                 (layout.counts_c, (b_cap,)), (layout.covered, ())]
+        b_cap = (layout.offs_c.shape[0],)
+        want += [("dest", layout.dest, (layout.n,), torch.int64),
+                 ("offs_c", layout.offs_c, b_cap, torch.int64),
+                 ("counts_c", layout.counts_c, b_cap, torch.int64),
+                 ("covered", layout.covered, (), torch.int64)]
     elif layout.dest is not None:
         raise ValueError("a big-splat table without an aux region")
-    dev = g.device
-    for t, shape in want:
-        if (t.dtype != torch.int64 or t.shape != shape or t.device != dev
-                or not t.is_contiguous()):
-            raise ValueError(f"perm and the big-splat table must be "
-                             f"contiguous int64 on {dev}: got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device} "
-                             f"for {shape}")
-    if not g.is_cuda:
-        raise ValueError("gather_bwd_cuda needs CUDA tensors")
+    launch.check_tensors(g.device, *want)
+    launch.check_cuda_launch(g, "gather_bwd_cuda")
 
 
 def row_width(f: int) -> int:
@@ -492,19 +487,10 @@ def row_width(f: int) -> int:
     return 8 * (-(-f // 8))
 
 
-@functools.cache
-def _bwd_kernel():
-    """csrc/gather_bwd.cu's C entry point, built and loaded on first use."""
-    from .. import _build
-    fn = _build.load("gather_bwd").gather_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-                    ctypes.c_int]
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 3
-                   + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] + [ctypes.c_void_p] * 3)
-    return fn
+_GATHER_BWD = launch.Kernel(
+    "gather_bwd", "gather_bwd",
+    (PTR, INT, INT, I64, PTR, I64, INT) + (I64,) * 2 + (PTR,) * 3 + (I64,)
+    + (PTR,) * 3 + (INT,) + (PTR,) * 3, LAUNCHES, launches=2)
 
 
 def launch_gather_bwd(g, perm, layout: SlotLayout, aligned, partials, d,
@@ -516,24 +502,17 @@ def launch_gather_bwd(g, perm, layout: SlotLayout, aligned, partials, d,
     int64, all contiguous on g's device.  g, perm and layout as
     :func:`gather_bwd`, checked by the caller."""
     f, s = g.shape
-    dev = g.device
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _bwd_kernel()(
-            g.data_ptr(), f, aligned.shape[1], s, perm.data_ptr(), layout.n,
-            layout.lanes, layout.aux_cap, layout.pad, ptr(layout.dest),
-            ptr(layout.offs_c), ptr(layout.counts_c),
-            layout.offs_c.shape[0] if layout.dest is not None else 0,
-            ptr(layout.covered), aligned.data_ptr(), partials.data_ptr(),
-            partials.shape[0], d.data_ptr(), tail.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"gather_bwd kernel launch failed: CUDA error "
-                           f"{err}")
-    metrics.add(LAUNCHES, 2)
+    _GATHER_BWD(
+        g.device, g.data_ptr(), f, aligned.shape[1], s, perm.data_ptr(),
+        layout.n, layout.lanes, layout.aux_cap, layout.pad, ptr(layout.dest),
+        ptr(layout.offs_c), ptr(layout.counts_c),
+        layout.offs_c.shape[0] if layout.dest is not None else 0,
+        ptr(layout.covered), aligned.data_ptr(), partials.data_ptr(),
+        partials.shape[0], d.data_ptr(), tail.data_ptr())
 
 
 def gather_bwd_cuda(g, perm, layout: SlotLayout):
@@ -564,9 +543,8 @@ def gather_bwd(g, perm, layout: SlotLayout):
     cotangent reaches its splat, those outside every tile's window too, so
     it is the exact gradient for any cotangent.  CUDA tensors launch
     :func:`gather_bwd_cuda`; CPU tensors take :func:`gather_bwd_torch`."""
-    if g.is_cuda:
-        return gather_bwd_cuda(g, perm, layout)
-    return gather_bwd_torch(g, perm, layout)
+    return launch.dispatch(g, gather_bwd_cuda, gather_bwd_torch)(g, perm,
+                                                                 layout)
 
 
 class _Gather(torch.autograd.Function):

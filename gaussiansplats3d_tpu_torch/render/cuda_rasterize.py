@@ -58,13 +58,15 @@ boxes (the rest have alpha 0) and takes the in-chunk transmittance prefix
 and the backward's suffix as float64 run sums per pixel.  The wrappers use
 them for CPU tensors only; for CUDA tensors they launch the kernels or
 raise.
+
+``cuda_surfel`` and ``tools/kernel_bench`` share this module's chunk
+constants, input check (:func:`check_inputs`) and plain chunk loops with
+their pieces (:func:`box_entries`, :func:`seg_scan`, :func:`tile_origins`).
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import functools
 import math
 
 import torch
@@ -72,16 +74,18 @@ import torch
 from ..constants import ALPHA_CLAMP, GAUSSIAN_CUTOFF
 from ..core.types import RenderConfig
 from ..utils import metrics
+from . import launch
+from .launch import F32, I64, INT, PTR, check_cuda_launch
 
 CHUNK = 128
 # Per-chunk floor on the log-transmittance contribution (the JAX package's
 # _CS_FLOOR): a chunk of near-opaque pairs can add log T ~ -590, far below
 # float32 exp range; the backward replay subtracts the same clamped sums.
-_CS_FLOOR = math.log(1e-37)
+CS_FLOOR = math.log(1e-37)
 # A tile stops once every pixel's transmittance is <= 1e-4.
-_EXIT_T = 1e-4
-# Tiles per step of the plain version: [64, 128, P] float32 temporaries.
-_GROUP_SIZE = 64
+EXIT_T = 1e-4
+# Tiles per step of the plain versions: [64, 128, P] float32 temporaries.
+GROUP_SIZE = 64
 # The side of the square patch of pixels each warp of B1-B4 holds
 # (csrc/warp_cull.cuh: kPatch); see warp_rects.
 WARP_PATCH = 8
@@ -101,11 +105,21 @@ def reset_launches() -> None:
     metrics.reset(LAUNCHES, BWD_LAUNCHES)
 
 
-def _check_inputs(records, starts, counts, ids, cfg: RenderConfig,
-                  rows: tuple = (11, 12)):
+# B1's and B3's C signature
+FWD_ARGTYPES = ((PTR, I64, INT) + (PTR,) * 3 + (INT,) * 3 + (F32,) * 3
+                + (PTR,) * 4)
+_B1 = launch.Kernel("composite_fwd", "composite_fwd", FWD_ARGTYPES, LAUNCHES)
+_B2 = launch.Kernel("composite_bwd", "composite_bwd",
+                    (PTR, I64, INT) + (PTR,) * 6 + (INT,) * 3 + (F32,) * 2
+                    + (PTR,) * 2, BWD_LAUNCHES)
+
+
+def check_inputs(records, starts, counts, ids, cfg: RenderConfig,
+                 rows: tuple = (11, 12), specs: tuple = ()):
     """Raise unless the compositor inputs are what the kernels take:
     records ``[rows[0] or rows[1], S]`` float32 (S a multiple of 128),
-    ``[T]`` int32 windows and tile ids, all contiguous on one device."""
+    ``[T]`` int32 windows and tile ids, and then the further ``(name,
+    tensor, shape, dtype)`` ``specs``, all contiguous on one device."""
     if records.dtype != torch.float32 or records.dim() != 2:
         raise ValueError("records must be a 2-D float32 tensor")
     nf, s = records.shape
@@ -113,80 +127,35 @@ def _check_inputs(records, starts, counts, ids, cfg: RenderConfig,
         raise ValueError(f"records must be [{rows[0]} or {rows[1]}, S] with "
                          f"S a multiple of {CHUNK}, got "
                          f"{tuple(records.shape)}")
-    t = starts.shape[0]
-    for name, v in (("tile_starts", starts), ("tile_counts", counts),
-                    ("tile_ids", ids)):
-        if v.dtype != torch.int32 or v.shape != (t,):
-            raise ValueError(f"{name} must be [{t}] int32")
-        if v.device != records.device:
-            raise ValueError(f"{name} is on {v.device}, records on "
-                             f"{records.device}")
-        if not v.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    t = (starts.shape[0],)
+    launch.check_tensors(
+        records.device, ("tile_starts", starts, t, torch.int32),
+        ("tile_counts", counts, t, torch.int32),
+        ("tile_ids", ids, t, torch.int32))
     if not records.is_contiguous():
         raise ValueError("records must be contiguous")
     if s >= 2 ** 31:
         raise ValueError("records capacity must stay below 2^31")
-
-
-def check_cuda_launch(records, name: str):
-    """Raise unless a CUDA compositor (B1-B5) can launch on these inputs:
-    the records on a CUDA device (every tile side >= 1 launches)."""
-    if not records.is_cuda:
-        raise ValueError(f"{name} needs CUDA tensors")
-
-
-@functools.cache
-def _kernel():
-    """B1's C entry point, built and loaded on first use, its signature
-    set once."""
-    from .. import _build
-    fn = _build.load("composite_fwd").composite_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 4)
-    return fn
-
-
-@functools.cache
-def _bwd_kernel():
-    """B2's C entry point, built and loaded on first use."""
-    from .. import _build
-    fn = _build.load("composite_bwd").composite_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
-                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
-    return fn
+    launch.check_tensors(records.device, *specs)
 
 
 def composite_fwd_cuda(records, tile_starts, tile_counts, tile_ids,
                        cfg: RenderConfig):
     """Launch B1 on the current stream.  Inputs as :func:`composite_fwd`,
     all on one CUDA device; returns (chans, logt, exit_k)."""
-    _check_inputs(records, tile_starts, tile_counts, tile_ids, cfg)
+    check_inputs(records, tile_starts, tile_counts, tile_ids, cfg)
     check_cuda_launch(records, "composite_fwd_cuda")
-    fn = _kernel()
     nf, s = records.shape
-    nc = nf - 8
     t = tile_starts.shape[0]
     p = cfg.tile_size * cfg.tile_size
     dev = records.device
-    chans = torch.empty((t, nc + 1, p), dtype=torch.float32, device=dev)
+    chans = torch.empty((t, nf - 7, p), dtype=torch.float32, device=dev)
     logt = torch.empty((t, p), dtype=torch.float32, device=dev)
     exit_k = torch.empty((t,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(records.data_ptr(), s, nc, tile_starts.data_ptr(),
-                 tile_counts.data_ptr(), tile_ids.data_ptr(), t,
-                 cfg.tile_size, cfg.tiles_x, cfg.min_alpha, _CS_FLOOR,
-                 _EXIT_T, chans.data_ptr(), logt.data_ptr(),
-                 exit_k.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"composite_fwd kernel launch failed: CUDA error "
-                           f"{err}")
-    metrics.add(LAUNCHES)
+    _B1(dev, records.data_ptr(), s, nf - 8, tile_starts.data_ptr(),
+        tile_counts.data_ptr(), tile_ids.data_ptr(), t, cfg.tile_size,
+        cfg.tiles_x, cfg.min_alpha, CS_FLOOR, EXIT_T, chans.data_ptr(),
+        logt.data_ptr(), exit_k.data_ptr())
     return chans, logt, exit_k
 
 
@@ -203,7 +172,7 @@ def tile_ids_from_base(tile_base, num_tiles: int, device) -> torch.Tensor:
                         device=device)
 
 
-def _tile_origins(tile_ids, cfg: RenderConfig):
+def tile_origins(tile_ids, cfg: RenderConfig):
     """Pixel x and y of each tile's corner, [G] float32 each."""
     ts = float(cfg.tile_size)
     tx = (tile_ids % cfg.tiles_x).to(torch.float32)
@@ -282,47 +251,58 @@ def kept_pair_warps(x, y, rx, ry, tile_ids, cfg: RenderConfig):
     against :func:`warp_rects`): [B] int64 for pairs with centres (x, y),
     boxes (rx, ry) and global tile ids ``tile_ids``, all [B]."""
     rects = warp_rects(cfg).to(x.device)               # [W, 4]
-    tx, ty = _tile_origins(tile_ids, cfg)
+    tx, ty = tile_origins(tile_ids, cfg)
     keep = warp_keep(x[:, None], y[:, None], rx[:, None], ry[:, None],
                      tx[:, None] + rects[:, 0], tx[:, None] + rects[:, 1],
                      ty[:, None] + rects[:, 2], ty[:, None] + rects[:, 3])
     return keep.sum(dim=1)
 
 
-def _chunk_pairs(rec, window, x0, y0, nc, cfg: RenderConfig):
+def box_entries(rec, window, x0, y0, xy_row: int, box_row: int,
+                cfg: RenderConfig):
     """The (tile, pixel, pair) entries of one chunk of a group of tiles
-    that lie inside the pair's rx/ry support box, ordered by tile, pixel,
-    then pair: the others have alpha 0 and add nothing.
-
-    ``rec [NF, G, C]`` holds the chunk's records, ``window [G, C]`` which
-    lanes belong to the tile.  Returns a dict of [M] tensors: ``tile``,
-    ``seg`` (tile * P + pixel), ``lane``, ``rec`` ([NF, M]), ``dx``,
-    ``dy``, ``e`` = exp(-g / 2) and ``alpha``, clamped to 0.999 and 0
-    where g > 8 or alpha < min_alpha, with the kernels' arithmetic."""
+    whose pixel centre lies inside the pair's support box (centre in
+    records rows ``xy_row``, ``xy_row + 1``, half-widths rx, ry in rows
+    ``box_row``, ``box_row + 1``), ordered by tile, pixel, then pair: the
+    others have alpha 0 and add nothing.  ``rec [NF, G, C]`` holds the
+    chunk's records, ``window [G, C]`` which lanes belong to the tile.
+    Returns a dict of [M] tensors: ``tile``, ``seg`` (tile * P + pixel),
+    ``lane``, ``rec`` ([NF, M]) and the pixel centre ``px``, ``py``."""
     ts = cfg.tile_size
     pix = torch.arange(ts, device=rec.device).to(torch.float32)
     # GL pixel centres, as (corner + index) + 0.5
-    dxc = (x0[:, None] + pix + 0.5)[:, None, :] - rec[0][..., None]
-    dyr = (y0[:, None] + pix + 0.5)[:, None, :] - rec[1][..., None]
-    in_x = torch.abs(dxc) <= rec[6 + nc][..., None]             # [G, C, x]
-    in_y = torch.abs(dyr) <= rec[7 + nc][..., None]             # [G, C, y]
+    pxs = x0[:, None] + pix + 0.5                               # [G, x]
+    pys = y0[:, None] + pix + 0.5                               # [G, y]
+    in_x = torch.abs(pxs[:, None, :] - rec[xy_row][..., None]) \
+        <= rec[box_row][..., None]                              # [G, C, x]
+    in_y = torch.abs(pys[:, None, :] - rec[xy_row + 1][..., None]) \
+        <= rec[box_row + 1][..., None]                          # [G, C, y]
     in_y = in_y.permute(0, 2, 1) & window[:, None, :]           # [G, y, C]
     box = in_y[:, :, None, :] & in_x.permute(0, 2, 1)[:, None]
     tile, iy, ix, lane = box.nonzero(as_tuple=True)             # [G, y, x, C]
-    r = rec[:, tile, lane]                                      # [NF, M]
-    dx, dy = dxc[tile, lane, ix], dyr[tile, lane, iy]
+    return {"tile": tile, "seg": tile * (ts * ts) + iy * ts + ix,
+            "lane": lane, "rec": rec[:, tile, lane], "px": pxs[tile, ix],
+            "py": pys[tile, iy]}
+
+
+def chunk_pairs(rec, window, x0, y0, nc, cfg: RenderConfig):
+    """:func:`box_entries` of the Gaussian records, with ``dx``, ``dy``
+    (pixel centre less the pair's), ``e`` = exp(-g / 2) and ``alpha``,
+    clamped to 0.999 and 0 where g > 8 or alpha < min_alpha, with the
+    kernels' arithmetic."""
+    ent = box_entries(rec, window, x0, y0, 0, 6 + nc, cfg)
+    r = ent["rec"]
+    dx, dy = ent["px"] - r[0], ent["py"] - r[1]
     g = r[2] * dx * dx + 2.0 * r[3] * dx * dy + r[4] * dy * dy
     e = torch.exp(-0.5 * g)
     alpha = r[5 + nc] * e
     keep = (g <= GAUSSIAN_CUTOFF) & (alpha >= cfg.min_alpha)
     alpha = torch.where(keep, torch.clamp(alpha, max=ALPHA_CLAMP),
                         torch.zeros_like(alpha))
-    return {"tile": tile, "seg": tile * (ts * ts) + iy * ts + ix,
-            "lane": lane, "rec": r, "dx": dx, "dy": dy, "e": e,
-            "alpha": alpha}
+    return {**ent, "dx": dx, "dy": dy, "e": e, "alpha": alpha}
 
 
-def _seg_scan(v, seg):
+def seg_scan(v, seg):
     """Sums within runs of equal ``seg`` (entries grouped by seg), taken
     in float64: each entry's exclusive prefix and exclusive suffix in its
     run, and the run totals as ``(unique seg, total)``; float32 out."""
@@ -347,27 +327,25 @@ def _seg_scan(v, seg):
 def composite_fwd_torch(records, tile_starts, tile_counts, tile_ids,
                         cfg: RenderConfig):
     """The plain PyTorch version of B1, on any device: same chunk windows,
-    exit rule, ``_CS_FLOOR`` and outputs.  Tiles go ``_GROUP_SIZE`` at a
+    exit rule, ``CS_FLOOR`` and outputs.  Tiles go ``GROUP_SIZE`` at a
     time, each group's chunk loop in lockstep; each chunk evaluates only
-    the pair-pixel entries inside the support boxes (:func:`_chunk_pairs`)
+    the pair-pixel entries inside the support boxes (:func:`chunk_pairs`)
     and takes the in-chunk transmittance prefix as a run sum per pixel."""
-    _check_inputs(records, tile_starts, tile_counts, tile_ids, cfg)
+    check_inputs(records, tile_starts, tile_counts, tile_ids, cfg)
     nc = records.shape[0] - 8
-    return composite_chunks_torch(
-        records, tile_starts, tile_counts, tile_ids, cfg, nc, 5,
-        lambda rec, window, x0, y0: _chunk_pairs(rec, window, x0, y0, nc,
-                                                 cfg))
+    return composite_chunks_torch(records, tile_starts, tile_counts,
+                                  tile_ids, cfg, nc, 5, chunk_pairs)
 
 
 def composite_chunks_torch(records, tile_starts, tile_counts, tile_ids,
                            cfg: RenderConfig, nc: int, chan_row: int,
                            entries):
     """The chunk loop of the plain compositors (B1's and the surfel
-    compositor's): floor-aligned 128-pair chunk windows, the ``_CS_FLOOR``
-    clamp per chunk and the ``max T <= 1e-4`` exit, tiles ``_GROUP_SIZE``
+    compositor's): floor-aligned 128-pair chunk windows, the ``CS_FLOOR``
+    clamp per chunk and the ``max T <= 1e-4`` exit, tiles ``GROUP_SIZE``
     at a time in lockstep.  ``entries(rec [NF, G, C], window [G, C], x0,
-    y0)`` gives a chunk's in-box pair-pixel entries as
-    :func:`_chunk_pairs` does (``seg``, ``rec`` and ``alpha`` are read);
+    y0, nc, cfg)`` gives a chunk's in-box pair-pixel entries as
+    :func:`chunk_pairs` does (``seg``, ``rec`` and ``alpha`` are read);
     records rows ``chan_row .. chan_row + nc`` are the channels.  Returns
     ``(chans [T, NC + 1, P], logt [T, P], exit_k [T])``, alpha last."""
     s = records.shape[1]
@@ -378,12 +356,12 @@ def composite_chunks_torch(records, tile_starts, tile_counts, tile_ids,
     logt = torch.zeros((t, p), dtype=torch.float32, device=dev)
     exit_k = torch.zeros((t,), dtype=torch.int32, device=dev)
     lane = torch.arange(CHUNK, device=dev)
-    for g0 in range(0, t, _GROUP_SIZE):
-        g1 = min(g0 + _GROUP_SIZE, t)
+    for g0 in range(0, t, GROUP_SIZE):
+        g1 = min(g0 + GROUP_SIZE, t)
         n_g = g1 - g0
         start = tile_starts[g0:g1].long()
         count = tile_counts[g0:g1].long()
-        x0, y0 = _tile_origins(tile_ids[g0:g1].long(), cfg)
+        x0, y0 = tile_origins(tile_ids[g0:g1].long(), cfg)
         start_chunk = torch.div(start, CHUNK, rounding_mode="floor")
         num_chunks = torch.div(start % CHUNK + count + CHUNK - 1, CHUNK,
                                rounding_mode="floor")
@@ -399,10 +377,10 @@ def composite_chunks_torch(records, tile_starts, tile_counts, tile_ids,
             rec = records[:, torch.clamp(gpos, max=s - 1)]       # [NF, G, C]
             window = (gpos >= start[:, None]) & (
                 gpos < (start + count)[:, None]) & active[:, None]
-            ent = entries(rec, window, x0, y0)
+            ent = entries(rec, window, x0, y0, nc, cfg)
             seg, alpha = ent["seg"], ent["alpha"]
             logw = torch.log1p(-alpha)
-            excl, _, seg_u, total = _seg_scan(logw, seg)
+            excl, _, seg_u, total = seg_scan(logw, seg)
             w = alpha * (torch.exp(excl) * trans[seg])
             chan = torch.cat([ent["rec"][chan_row:chan_row + nc],
                               torch.ones_like(alpha)[None]])
@@ -411,11 +389,11 @@ def composite_chunks_torch(records, tile_starts, tile_counts, tile_ids,
             csum = torch.zeros_like(trans)
             csum[seg_u] = total
             trans = trans * torch.exp(csum)
-            lt = lt + torch.clamp(csum, min=_CS_FLOOR)
+            lt = lt + torch.clamp(csum, min=CS_FLOOR)
             k += 1
             k_done = torch.where(active, torch.full_like(k_done, k), k_done)
             active = (active & (k < num_chunks)
-                      & (trans.view(n_g, p).amax(dim=1) > _EXIT_T))
+                      & (trans.view(n_g, p).amax(dim=1) > EXIT_T))
         chans[g0:g1] = col.view(nc + 1, n_g, p).permute(1, 0, 2)
         logt[g0:g1] = lt.view(n_g, p)
         exit_k[g0:g1] = k_done.to(torch.int32)
@@ -439,33 +417,17 @@ def composite_fwd(records, tile_starts, tile_counts, tile_ids,
     of chans is the composited alpha (the sum of the weights), logt the
     per-chunk-clamped log transmittance, exit_k the chunks composited.
     """
-    if records.is_cuda:
-        return composite_fwd_cuda(records, tile_starts, tile_counts,
-                                  tile_ids, cfg)
-    if records.device.type == "cpu":
-        return composite_fwd_torch(records, tile_starts, tile_counts,
-                                   tile_ids, cfg)
-    raise ValueError(f"no compositor for device {records.device}")
+    return launch.dispatch(records, composite_fwd_cuda, composite_fwd_torch)(
+        records, tile_starts, tile_counts, tile_ids, cfg)
 
 
 def _check_bwd_inputs(records, starts, counts, ids, logt, exit_k, gchans,
                       cfg: RenderConfig):
-    _check_inputs(records, starts, counts, ids, cfg)
-    t = starts.shape[0]
-    p = cfg.tile_size * cfg.tile_size
-    nc = records.shape[0] - 8
-    for name, v, shape, dtype in (
-            ("logt", logt, (t, p), torch.float32),
-            ("exit_k", exit_k, (t,), torch.int32),
-            ("gchans", gchans, (t, nc + 1, p), torch.float32)):
-        if v.dtype != dtype or tuple(v.shape) != shape:
-            raise ValueError(f"{name} must be {list(shape)} {dtype}, got "
-                             f"{list(v.shape)} {v.dtype}")
-        if v.device != records.device:
-            raise ValueError(f"{name} is on {v.device}, records on "
-                             f"{records.device}")
-        if not v.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    t, p = starts.shape[0], cfg.tile_size * cfg.tile_size
+    check_inputs(records, starts, counts, ids, cfg, specs=(
+        ("logt", logt, (t, p), torch.float32),
+        ("exit_k", exit_k, (t,), torch.int32),
+        ("gchans", gchans, (t, records.shape[0] - 7, p), torch.float32)))
 
 
 def composite_bwd_cuda(records, tile_starts, tile_counts, tile_ids, logt,
@@ -475,50 +437,47 @@ def composite_bwd_cuda(records, tile_starts, tile_counts, tile_ids, logt,
     _check_bwd_inputs(records, tile_starts, tile_counts, tile_ids, logt,
                       exit_k, gchans, cfg)
     check_cuda_launch(records, "composite_bwd_cuda")
-    fn = _bwd_kernel()
     nf, s = records.shape
-    t = tile_starts.shape[0]
     dev = records.device
     # slots outside every window and chunks past exit_k stay 0
     grad = torch.zeros((nf, s), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(records.data_ptr(), s, nf - 8, tile_starts.data_ptr(),
-                 tile_counts.data_ptr(), tile_ids.data_ptr(),
-                 logt.data_ptr(), exit_k.data_ptr(), gchans.data_ptr(), t,
-                 cfg.tile_size, cfg.tiles_x, cfg.min_alpha, _CS_FLOOR,
-                 grad.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error "
-                           f"{err}")
-    metrics.add(BWD_LAUNCHES)
+    _B2(dev, records.data_ptr(), s, nf - 8, tile_starts.data_ptr(),
+        tile_counts.data_ptr(), tile_ids.data_ptr(), logt.data_ptr(),
+        exit_k.data_ptr(), gchans.data_ptr(), tile_starts.shape[0],
+        cfg.tile_size, cfg.tiles_x, cfg.min_alpha, CS_FLOOR, grad.data_ptr())
     return grad
 
 
-def composite_bwd_torch(records, tile_starts, tile_counts, tile_ids, logt,
-                        exit_k, gchans, cfg: RenderConfig):
-    """The plain PyTorch version of B2, on any device: the reverse replay
-    of chunks ``exit_k - 1 .. 0`` on B1's semantics, over the same
-    in-box entries as :func:`composite_fwd_torch`.  Tiles go
-    ``_GROUP_SIZE`` at a time, each group's chunk loop in lockstep."""
-    _check_bwd_inputs(records, tile_starts, tile_counts, tile_ids, logt,
-                      exit_k, gchans, cfg)
+def composite_bwd_chunks_torch(records, tile_starts, tile_counts, tile_ids,
+                               logt, exit_k, gch, glogt, cfg: RenderConfig,
+                               nc: int, chan_row: int, alpha_max: float,
+                               entries, chain):
+    """The reverse loop of the plain compositor backwards (B2's and the
+    surfel compositor's): :func:`composite_chunks_torch`'s chunks from
+    ``exit_k - 1`` down to 0, log T replayed back from ``logt``.  ``gch
+    [NC (+ 1), T * P]``: the cotangents of the channels (records rows
+    ``chan_row ..``) and, in a last row, of the alpha channel; ``glogt``
+    that of logt, or None.  ``chain(ent, d_alpha, gate, w, gch)`` gives a
+    chunk's terms ``[NF - 2, M]`` (every row but rx, ry) from d loss / d
+    alpha, 0 outside ``gate`` (0 < alpha < alpha_max).  Returns
+    grad_records ``[NF, S]``."""
     nf, s = records.shape
-    nc = nf - 8
+    nd = nf - 2
     t = tile_starts.shape[0]
     p = cfg.tile_size * cfg.tile_size
     dev = records.device
     grad = torch.zeros((nf, s), dtype=torch.float32, device=dev)
     lane = torch.arange(CHUNK, device=dev)
-    for g0 in range(0, t, _GROUP_SIZE):
-        g1 = min(g0 + _GROUP_SIZE, t)
+    for g0 in range(0, t, GROUP_SIZE):
+        g1 = min(g0 + GROUP_SIZE, t)
         n_g = g1 - g0
         start = tile_starts[g0:g1].long()
         count = tile_counts[g0:g1].long()
         k_exit = exit_k[g0:g1].long()
-        x0, y0 = _tile_origins(tile_ids[g0:g1].long(), cfg)
+        x0, y0 = tile_origins(tile_ids[g0:g1].long(), cfg)
         start_chunk = torch.div(start, CHUNK, rounding_mode="floor")
-        gch = gchans[g0:g1].permute(1, 0, 2).reshape(nc + 1, n_g * p)
+        gch_g = gch[:, g0 * p:g1 * p]
+        gl = None if glogt is None else glogt[g0:g1].reshape(-1)
         lt_after = logt[g0:g1].reshape(-1).clone()
         sg = torch.zeros_like(lt_after)     # sum of w cg behind each pair
         for k in range(int(k_exit.max()) - 1, -1, -1):
@@ -527,47 +486,69 @@ def composite_bwd_torch(records, tile_starts, tile_counts, tile_ids, logt,
             rec = records[:, torch.clamp(gpos, max=s - 1)]     # [NF, G, C]
             window = (gpos >= start[:, None]) & (
                 gpos < (start + count)[:, None]) & active[:, None]
-            ent = _chunk_pairs(rec, window, x0, y0, nc, cfg)
+            ent = entries(rec, window, x0, y0, nc, cfg)
             seg, alpha, r = ent["seg"], ent["alpha"], ent["rec"]
-            dx, dy = ent["dx"], ent["dy"]
             logw = torch.log1p(-alpha)
-            excl, _, seg_u, total = _seg_scan(logw, seg)
+            excl, _, seg_u, total = seg_scan(logw, seg)
             csum = torch.zeros_like(lt_after)
             csum[seg_u] = total
             lt_before = torch.where(
                 active.repeat_interleave(p),
-                lt_after - torch.clamp(csum, min=_CS_FLOOR), lt_after)
+                lt_after - torch.clamp(csum, min=CS_FLOOR), lt_after)
             t_i = torch.exp(excl + lt_before[seg])
             w = alpha * t_i
-            cg = gch[nc][seg] + sum(r[5 + c] * gch[c][seg]
-                                    for c in range(nc))
+            cg = sum(r[chan_row + c] * gch_g[c][seg] for c in range(nc))
+            if gch_g.shape[0] > nc:
+                cg = gch_g[nc][seg] + cg
             u = w * cg
-            _, behind, _, _ = _seg_scan(u, seg)
-            d_alpha = t_i * cg - (behind + sg[seg]) / torch.clamp(
-                1.0 - alpha, min=1e-6)
-            gate = (alpha > 0.0) & (alpha < ALPHA_CLAMP)
+            _, behind, _, _ = seg_scan(u, seg)
+            one_minus = torch.clamp(1.0 - alpha, min=1e-6)
+            d_alpha = t_i * cg - (behind + sg[seg]) / one_minus
+            if gl is not None:
+                d_alpha = d_alpha - gl[seg] / one_minus
+            gate = (alpha > 0.0) & (alpha < alpha_max)
             d_alpha = torch.where(gate, d_alpha, torch.zeros_like(d_alpha))
-            d_quad = d_alpha * (-0.5 * alpha)
-            ca, cb, cc = r[2], r[3], r[4]
-            terms = torch.stack([
-                d_quad * (-2.0) * (ca * dx + cb * dy),
-                d_quad * (-2.0) * (cb * dx + cc * dy),
-                d_quad * dx * dx,
-                d_quad * 2.0 * dx * dy,
-                d_quad * dy * dy,
-                *(w * gch[c][seg] for c in range(nc)),
-                # d alpha / d opa = e where the gate is open (and opa > 0)
-                torch.where(gate & (r[5 + nc] > 0.0), d_alpha * ent["e"],
-                            torch.zeros_like(d_alpha))])       # [NC+6, M]
-            acc = torch.zeros((nc + 6, n_g * CHUNK), dtype=torch.float32,
+            terms = chain(ent, d_alpha, gate, w, gch_g)
+            acc = torch.zeros((nd, n_g * CHUNK), dtype=torch.float32,
                               device=dev)
             acc.index_add_(1, ent["tile"] * CHUNK + ent["lane"], terms)
             # windows are disjoint: each slot is written by one tile only
-            grad[:nc + 6, gpos[window]] = acc.view(nc + 6, n_g,
-                                                   CHUNK)[:, window]
+            grad[:nd, gpos[window]] = acc.view(nd, n_g, CHUNK)[:, window]
             sg = sg.index_add(0, seg, u)
             lt_after = lt_before
     return grad
+
+
+def composite_bwd_torch(records, tile_starts, tile_counts, tile_ids, logt,
+                        exit_k, gchans, cfg: RenderConfig):
+    """The plain PyTorch version of B2, on any device: the reverse replay
+    of chunks ``exit_k - 1 .. 0`` on B1's semantics
+    (:func:`composite_bwd_chunks_torch`), over the same in-box entries as
+    :func:`composite_fwd_torch`, with B2's closed-form terms."""
+    _check_bwd_inputs(records, tile_starts, tile_counts, tile_ids, logt,
+                      exit_k, gchans, cfg)
+    nc = records.shape[0] - 8
+
+    def chain(ent, d_alpha, gate, w, gch):
+        r, seg, alpha, dx, dy = (ent["rec"], ent["seg"], ent["alpha"],
+                                 ent["dx"], ent["dy"])
+        d_quad = d_alpha * (-0.5 * alpha)
+        ca, cb, cc = r[2], r[3], r[4]
+        return torch.stack([
+            d_quad * (-2.0) * (ca * dx + cb * dy),
+            d_quad * (-2.0) * (cb * dx + cc * dy),
+            d_quad * dx * dx,
+            d_quad * 2.0 * dx * dy,
+            d_quad * dy * dy,
+            *(w * gch[c][seg] for c in range(nc)),
+            # d alpha / d opa = e where the gate is open (and opa > 0)
+            torch.where(gate & (r[5 + nc] > 0.0), d_alpha * ent["e"],
+                        torch.zeros_like(d_alpha))])           # [NC+6, M]
+
+    return composite_bwd_chunks_torch(
+        records, tile_starts, tile_counts, tile_ids, logt, exit_k,
+        gchans.permute(1, 0, 2).flatten(1), None, cfg, nc, 5,
+        ALPHA_CLAMP, chunk_pairs, chain)
 
 
 def composite_bwd(records, tile_starts, tile_counts, tile_ids, logt, exit_k,
@@ -584,13 +565,9 @@ def composite_bwd(records, tile_starts, tile_counts, tile_ids, logt, exit_k,
     2b), c, the NC channels and opacity; rx = ry = 0, and 0 at every slot
     outside the tiles' windows or in chunks past ``exit_k``.
     """
-    if records.is_cuda:
-        return composite_bwd_cuda(records, tile_starts, tile_counts,
-                                  tile_ids, logt, exit_k, gchans, cfg)
-    if records.device.type == "cpu":
-        return composite_bwd_torch(records, tile_starts, tile_counts,
-                                   tile_ids, logt, exit_k, gchans, cfg)
-    raise ValueError(f"no compositor for device {records.device}")
+    return launch.dispatch(records, composite_bwd_cuda, composite_bwd_torch)(
+        records, tile_starts, tile_counts, tile_ids, logt, exit_k, gchans,
+        cfg)
 
 
 class _CompositeTiles(torch.autograd.Function):

@@ -25,7 +25,7 @@ walk), so every side >= 1 launches; the tile's records staged 128 at a
 time in shared memory, floor-aligned 128-pair chunk windows, each chunk
 culled per warp (``csrc/warp_cull.cuh``) and the kept pairs walked in
 order, T kept as a product, log T as the sum of ``max(chunk_log,
-_CS_FLOOR)``, the tile stops once every pixel's T is at most 1e-4.  Outputs
+CS_FLOOR)``, the tile stops once every pixel's T is at most 1e-4.  Outputs
 colors ``[T, P, NC]``, logt ``[T, P]`` and exit_k ``[T]``.  B4: chunks
 ``exit_k - 1 .. 0`` in reverse, each culled per warp as in B3, T_i in log
 space from B3's residual log T (B3's chunk sum replayed only where T may
@@ -48,25 +48,26 @@ visits before the fragment's division and ``exp``.
 **Plain versions** (:func:`composite_surfel_fwd_torch`,
 :func:`composite_surfel_bwd_torch`): B3/B4's semantics (not the XLA
 compositor ``rasterize_surfel.py``, which has no exit and a -80 floor over
-the whole tile), evaluated on the in-box pair-pixel entries only.  The
-plain B4 takes the fragment's chain from ``torch.autograd`` of
-:func:`surfel_alpha`, so the card holds the kernel's hand-derived
-transpose against a machine-derived one.  The wrappers use them for CPU
-tensors only; for CUDA tensors they launch the kernels or raise.
+the whole tile), evaluated on the in-box pair-pixel entries only, in
+``cuda_rasterize``'s chunk loops.  The plain B4 takes the fragment's chain
+from ``torch.autograd`` of :func:`surfel_alpha`, so the card holds the
+kernel's hand-derived transpose against a machine-derived one.  The
+wrappers use them for CPU tensors only; for CUDA tensors they launch the
+kernels or raise.
 """
 
 from __future__ import annotations
-
-import ctypes
-import functools
 
 import torch
 
 from ..core.types import RenderConfig
 from ..utils import metrics
-from .cuda_rasterize import (CHUNK, _CS_FLOOR, _EXIT_T, _GROUP_SIZE,
-                             _check_inputs, _seg_scan, _tile_origins,
-                             check_cuda_launch, composite_chunks_torch)
+from . import launch
+from .cuda_rasterize import CHUNK  # noqa: F401  (the records' chunk)
+from .cuda_rasterize import (CS_FLOOR, EXIT_T, FWD_ARGTYPES, box_entries,
+                             check_inputs, composite_bwd_chunks_torch,
+                             composite_chunks_torch)
+from .launch import F32, I64, INT, PTR, check_cuda_launch
 
 ALPHA_MAX = 0.99
 NEAR_N = 0.2
@@ -82,6 +83,12 @@ BWD_LAUNCHES = "b4.launches"
 
 def reset_launches() -> None:
     metrics.reset(LAUNCHES, BWD_LAUNCHES)
+
+
+_B3 = launch.Kernel("surfel_fwd", "surfel_fwd", FWD_ARGTYPES, LAUNCHES)
+_B4 = launch.Kernel("surfel_bwd", "surfel_bwd",
+                    (PTR, I64, INT) + (PTR,) * 7 + (INT,) * 3 + (F32,) * 2
+                    + (PTR,) * 2, BWD_LAUNCHES)
 
 
 def surfel_alpha(t, cx, cy, opa, rx, ry, px, py, min_alpha):
@@ -117,41 +124,13 @@ def surfel_alpha(t, cx, cy, opa, rx, ry, px, py, min_alpha):
     return torch.where(bad, torch.zeros_like(alpha), alpha)
 
 
-def _check(records, starts, counts, ids, cfg: RenderConfig):
-    _check_inputs(records, starts, counts, ids, cfg, rows=RECORD_ROWS)
-
-
-@functools.cache
-def _kernel():
-    """B3's C entry point, built and loaded on first use."""
-    from .. import _build
-    fn = _build.load("surfel_fwd").surfel_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 4)
-    return fn
-
-
-@functools.cache
-def _bwd_kernel():
-    """B4's C entry point, built and loaded on first use."""
-    from .. import _build
-    fn = _build.load("surfel_bwd").surfel_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]
-                   + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2)
-    return fn
-
-
 def composite_surfel_fwd_cuda(records, tile_starts, tile_counts, tile_ids,
                               cfg: RenderConfig):
     """Launch B3 on the current stream.  Inputs as
     :func:`composite_surfel_fwd`, all on one CUDA device."""
-    _check(records, tile_starts, tile_counts, tile_ids, cfg)
+    check_inputs(records, tile_starts, tile_counts, tile_ids, cfg,
+                 RECORD_ROWS)
     check_cuda_launch(records, "composite_surfel_fwd_cuda")
-    fn = _kernel()
     nf, s = records.shape
     nc = nf - 14
     t = tile_starts.shape[0]
@@ -160,45 +139,22 @@ def composite_surfel_fwd_cuda(records, tile_starts, tile_counts, tile_ids,
     colors = torch.empty((t, p, nc), dtype=torch.float32, device=dev)
     logt = torch.empty((t, p), dtype=torch.float32, device=dev)
     exit_k = torch.empty((t,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(records.data_ptr(), s, nc, tile_starts.data_ptr(),
-                 tile_counts.data_ptr(), tile_ids.data_ptr(), t,
-                 cfg.tile_size, cfg.tiles_x, cfg.min_alpha, _CS_FLOOR,
-                 _EXIT_T, colors.data_ptr(), logt.data_ptr(),
-                 exit_k.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"surfel_fwd kernel launch failed: CUDA error "
-                           f"{err}")
-    metrics.add(LAUNCHES)
+    _B3(dev, records.data_ptr(), s, nc, tile_starts.data_ptr(),
+        tile_counts.data_ptr(), tile_ids.data_ptr(), t, cfg.tile_size,
+        cfg.tiles_x, cfg.min_alpha, CS_FLOOR, EXIT_T, colors.data_ptr(),
+        logt.data_ptr(), exit_k.data_ptr())
     return colors, logt, exit_k
 
 
 def _surfel_entries(rec, window, x0, y0, nc, cfg: RenderConfig):
-    """The (tile, pixel, pair) entries of one chunk of a group of tiles
-    that lie inside the pair's rx/ry box, ordered by tile, pixel, then
-    pair, with their alpha (:func:`surfel_alpha`).  ``rec [NF, G, C]``,
-    ``window [G, C]``.  Returns a dict of [M] tensors: ``tile``, ``seg``
-    (tile * P + pixel), ``lane``, ``rec`` ([NF, M]), ``px``, ``py`` and
-    ``alpha``."""
-    ts = cfg.tile_size
-    pix = torch.arange(ts, device=rec.device).to(torch.float32)
-    # GL pixel centres, as (corner + index) + 0.5
-    pxs = x0[:, None] + pix + 0.5                                # [G, x]
-    pys = y0[:, None] + pix + 0.5                                # [G, y]
-    in_x = torch.abs(pxs[:, None, :] - rec[9][..., None]) \
-        <= rec[12 + nc][..., None]                               # [G, C, x]
-    in_y = torch.abs(pys[:, None, :] - rec[10][..., None]) \
-        <= rec[13 + nc][..., None]                               # [G, C, y]
-    in_y = in_y.permute(0, 2, 1) & window[:, None, :]            # [G, y, C]
-    box = in_y[:, :, None, :] & in_x.permute(0, 2, 1)[:, None]
-    tile, iy, ix, lane = box.nonzero(as_tuple=True)              # [G, y, x, C]
-    r = rec[:, tile, lane]                                       # [NF, M]
-    px, py = pxs[tile, ix], pys[tile, iy]
-    alpha = surfel_alpha(r[:9], r[9], r[10], r[11 + nc], r[12 + nc],
-                         r[13 + nc], px, py, cfg.min_alpha)
-    return {"tile": tile, "seg": tile * (ts * ts) + iy * ts + ix,
-            "lane": lane, "rec": r, "px": px, "py": py, "alpha": alpha}
+    """``cuda_rasterize.box_entries`` of the surfel records, with their
+    ``alpha`` (:func:`surfel_alpha`)."""
+    ent = box_entries(rec, window, x0, y0, 9, 12 + nc, cfg)
+    r = ent["rec"]
+    ent["alpha"] = surfel_alpha(r[:9], r[9], r[10], r[11 + nc], r[12 + nc],
+                                r[13 + nc], ent["px"], ent["py"],
+                                cfg.min_alpha)
+    return ent
 
 
 def composite_surfel_fwd_torch(records, tile_starts, tile_counts, tile_ids,
@@ -206,12 +162,12 @@ def composite_surfel_fwd_torch(records, tile_starts, tile_counts, tile_ids,
     """The plain PyTorch version of B3, on any device: B1's chunk loop
     (``cuda_rasterize.composite_chunks_torch``) over the surfel fragment's
     in-box entries."""
-    _check(records, tile_starts, tile_counts, tile_ids, cfg)
+    check_inputs(records, tile_starts, tile_counts, tile_ids, cfg,
+                 RECORD_ROWS)
     nc = records.shape[0] - 14
     chans, logt, exit_k = composite_chunks_torch(
         records, tile_starts, tile_counts, tile_ids, cfg, nc, 11,
-        lambda rec, window, x0, y0: _surfel_entries(rec, window, x0, y0, nc,
-                                                    cfg))
+        _surfel_entries)
     return chans[:, :nc].permute(0, 2, 1).contiguous(), logt, exit_k
 
 
@@ -231,34 +187,19 @@ def composite_surfel_fwd(records, tile_starts, tile_counts, tile_ids,
     composited channels, the per-chunk-clamped log transmittance and the
     chunks composited.
     """
-    if records.is_cuda:
-        return composite_surfel_fwd_cuda(records, tile_starts, tile_counts,
-                                         tile_ids, cfg)
-    if records.device.type == "cpu":
-        return composite_surfel_fwd_torch(records, tile_starts, tile_counts,
-                                          tile_ids, cfg)
-    raise ValueError(f"no compositor for device {records.device}")
+    return launch.dispatch(records, composite_surfel_fwd_cuda,
+                           composite_surfel_fwd_torch)(
+        records, tile_starts, tile_counts, tile_ids, cfg)
 
 
 def _check_bwd(records, starts, counts, ids, logt, exit_k, gcol, glogt,
                cfg: RenderConfig):
-    _check(records, starts, counts, ids, cfg)
-    t = starts.shape[0]
-    p = cfg.tile_size * cfg.tile_size
-    nc = records.shape[0] - 14
-    for name, v, shape, dtype in (
-            ("logt", logt, (t, p), torch.float32),
-            ("exit_k", exit_k, (t,), torch.int32),
-            ("gcol", gcol, (t, p, nc), torch.float32),
-            ("glogt", glogt, (t, p), torch.float32)):
-        if v.dtype != dtype or tuple(v.shape) != shape:
-            raise ValueError(f"{name} must be {list(shape)} {dtype}, got "
-                             f"{list(v.shape)} {v.dtype}")
-        if v.device != records.device:
-            raise ValueError(f"{name} is on {v.device}, records on "
-                             f"{records.device}")
-        if not v.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    t, p = starts.shape[0], cfg.tile_size * cfg.tile_size
+    check_inputs(records, starts, counts, ids, cfg, RECORD_ROWS, (
+        ("logt", logt, (t, p), torch.float32),
+        ("exit_k", exit_k, (t,), torch.int32),
+        ("gcol", gcol, (t, p, records.shape[0] - 14), torch.float32),
+        ("glogt", glogt, (t, p), torch.float32)))
 
 
 def composite_surfel_bwd_cuda(records, tile_starts, tile_counts, tile_ids,
@@ -268,23 +209,15 @@ def composite_surfel_bwd_cuda(records, tile_starts, tile_counts, tile_ids,
     _check_bwd(records, tile_starts, tile_counts, tile_ids, logt, exit_k,
                gcol, glogt, cfg)
     check_cuda_launch(records, "composite_surfel_bwd_cuda")
-    fn = _bwd_kernel()
     nf, s = records.shape
-    t = tile_starts.shape[0]
     dev = records.device
     # slots outside every window and chunks past exit_k stay 0
     grad = torch.zeros((nf, s), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(records.data_ptr(), s, nf - 14, tile_starts.data_ptr(),
-                 tile_counts.data_ptr(), tile_ids.data_ptr(),
-                 logt.data_ptr(), exit_k.data_ptr(), gcol.data_ptr(),
-                 glogt.data_ptr(), t, cfg.tile_size, cfg.tiles_x,
-                 cfg.min_alpha, _CS_FLOOR, grad.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"surfel_bwd kernel launch failed: CUDA error "
-                           f"{err}")
-    metrics.add(BWD_LAUNCHES)
+    _B4(dev, records.data_ptr(), s, nf - 14, tile_starts.data_ptr(),
+        tile_counts.data_ptr(), tile_ids.data_ptr(), logt.data_ptr(),
+        exit_k.data_ptr(), gcol.data_ptr(), glogt.data_ptr(),
+        tile_starts.shape[0], cfg.tile_size, cfg.tiles_x, cfg.min_alpha,
+        CS_FLOOR, grad.data_ptr())
     return grad
 
 
@@ -292,73 +225,31 @@ def composite_surfel_bwd_torch(records, tile_starts, tile_counts, tile_ids,
                                logt, exit_k, gcol, glogt,
                                cfg: RenderConfig):
     """The plain PyTorch version of B4, on any device: the reverse replay
-    of chunks ``exit_k - 1 .. 0`` on B3's semantics, over the same in-box
-    entries as :func:`composite_surfel_fwd_torch`; the fragment's chain is
-    ``torch.autograd`` of :func:`surfel_alpha`.  Tiles go ``_GROUP_SIZE``
-    at a time, each group's chunk loop in lockstep."""
+    of chunks ``exit_k - 1 .. 0`` on B3's semantics
+    (``cuda_rasterize.composite_bwd_chunks_torch``, with the glogt term),
+    over the same in-box entries as :func:`composite_surfel_fwd_torch`;
+    the fragment's chain is ``torch.autograd`` of :func:`surfel_alpha`."""
     _check_bwd(records, tile_starts, tile_counts, tile_ids, logt, exit_k,
                gcol, glogt, cfg)
-    nf, s = records.shape
-    nc = nf - 14
+    nc = records.shape[0] - 14
     nd = nc + 12                  # rows with a gradient: all but rx, ry
-    t = tile_starts.shape[0]
-    p = cfg.tile_size * cfg.tile_size
-    dev = records.device
-    grad = torch.zeros((nf, s), dtype=torch.float32, device=dev)
-    lane = torch.arange(CHUNK, device=dev)
-    for g0 in range(0, t, _GROUP_SIZE):
-        g1 = min(g0 + _GROUP_SIZE, t)
-        n_g = g1 - g0
-        start = tile_starts[g0:g1].long()
-        count = tile_counts[g0:g1].long()
-        k_exit = exit_k[g0:g1].long()
-        x0, y0 = _tile_origins(tile_ids[g0:g1].long(), cfg)
-        start_chunk = torch.div(start, CHUNK, rounding_mode="floor")
-        gch = gcol[g0:g1].reshape(n_g * p, nc).T                 # [NC, G P]
-        gl = glogt[g0:g1].reshape(-1)
-        lt_after = logt[g0:g1].reshape(-1).clone()
-        sg = torch.zeros_like(lt_after)     # sum of w cg behind each pair
-        for k in range(int(k_exit.max()) - 1, -1, -1):
-            active = k < k_exit                                # [G]
-            gpos = (start_chunk + k)[:, None] * CHUNK + lane[None, :]
-            rec = records[:, torch.clamp(gpos, max=s - 1)]     # [NF, G, C]
-            window = (gpos >= start[:, None]) & (
-                gpos < (start + count)[:, None]) & active[:, None]
-            ent = _surfel_entries(rec, window, x0, y0, nc, cfg)
-            seg, r, alpha = ent["seg"], ent["rec"], ent["alpha"]
-            logw = torch.log1p(-alpha)
-            excl, _, seg_u, total = _seg_scan(logw, seg)
-            csum = torch.zeros_like(lt_after)
-            csum[seg_u] = total
-            lt_before = torch.where(
-                active.repeat_interleave(p),
-                lt_after - torch.clamp(csum, min=_CS_FLOOR), lt_after)
-            t_i = torch.exp(excl + lt_before[seg])
-            w = alpha * t_i
-            cg = sum(r[11 + c] * gch[c][seg] for c in range(nc))
-            u = w * cg
-            _, behind, _, _ = _seg_scan(u, seg)
-            one_minus = torch.clamp(1.0 - alpha, min=1e-6)
-            d_alpha = (t_i * cg - (behind + sg[seg]) / one_minus
-                       - gl[seg] / one_minus)
-            gate = (alpha > 0.0) & (alpha < ALPHA_MAX)
-            d_alpha = torch.where(gate, d_alpha, torch.zeros_like(d_alpha))
-            # the fragment's chain, machine-derived
-            with torch.enable_grad():
-                rg = r[:nd].detach().requires_grad_(True)
-                alpha_g = surfel_alpha(rg[:9], rg[9], rg[10], rg[11 + nc],
-                                       r[12 + nc], r[13 + nc], ent["px"],
-                                       ent["py"], cfg.min_alpha)
-                (terms,) = torch.autograd.grad(alpha_g, rg, d_alpha)
-            terms[11:11 + nc] += w * gch[:, seg]
-            acc = torch.zeros((nd, n_g * CHUNK), dtype=torch.float32,
-                              device=dev)
-            acc.index_add_(1, ent["tile"] * CHUNK + ent["lane"], terms)
-            # windows are disjoint: each slot is written by one tile only
-            grad[:nd, gpos[window]] = acc.view(nd, n_g, CHUNK)[:, window]
-            sg = sg.index_add(0, seg, u)
-            lt_after = lt_before
-    return grad
+
+    def chain(ent, d_alpha, gate, w, gch):
+        r = ent["rec"]
+        # the fragment's chain, machine-derived
+        with torch.enable_grad():
+            rg = r[:nd].detach().requires_grad_(True)
+            alpha_g = surfel_alpha(rg[:9], rg[9], rg[10], rg[11 + nc],
+                                   r[12 + nc], r[13 + nc], ent["px"],
+                                   ent["py"], cfg.min_alpha)
+            (terms,) = torch.autograd.grad(alpha_g, rg, d_alpha)
+        terms[11:11 + nc] += w * gch[:, ent["seg"]]
+        return terms
+
+    return composite_bwd_chunks_torch(
+        records, tile_starts, tile_counts, tile_ids, logt, exit_k,
+        gcol.flatten(0, 1).T, glogt, cfg, nc, 11, ALPHA_MAX,
+        _surfel_entries, chain)
 
 
 def composite_surfel_bwd(records, tile_starts, tile_counts, tile_ids, logt,
@@ -375,15 +266,10 @@ def composite_surfel_bwd(records, tile_starts, tile_counts, tile_ids, logt,
     center, the NC channels and the opacity; rx = ry = 0, and 0 at every
     slot outside the tiles' windows or in chunks past ``exit_k``.
     """
-    if records.is_cuda:
-        return composite_surfel_bwd_cuda(records, tile_starts, tile_counts,
-                                         tile_ids, logt, exit_k, gcol,
-                                         glogt, cfg)
-    if records.device.type == "cpu":
-        return composite_surfel_bwd_torch(records, tile_starts, tile_counts,
-                                          tile_ids, logt, exit_k, gcol,
-                                          glogt, cfg)
-    raise ValueError(f"no compositor for device {records.device}")
+    return launch.dispatch(records, composite_surfel_bwd_cuda,
+                           composite_surfel_bwd_torch)(
+        records, tile_starts, tile_counts, tile_ids, logt, exit_k, gcol,
+        glogt, cfg)
 
 
 class _CompositeSurfelTiles(torch.autograd.Function):

@@ -57,9 +57,7 @@ it for CPU tensors only; for CUDA tensors it launches B5 or raises.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import dataclasses
-import functools
 import math
 import sys
 import time
@@ -68,6 +66,8 @@ import torch
 
 from ..core.types import RenderConfig
 from ..render import cuda_rasterize as cr
+from ..render import launch
+from ..render.launch import F32, I64, INT, PTR
 from ..utils import metrics
 
 VARIANTS = ("full", "log_scan", "exit_every4", "no_exit", "no_scan",
@@ -76,7 +76,6 @@ VARIANTS = ("full", "log_scan", "exit_every4", "no_exit", "no_scan",
 NC = 3
 # T floor of the forward the bench clones (pallas_rasterize._T_FLOOR)
 _T_FLOOR = math.exp(-80.0)
-_EXIT_T = 1e-4
 
 LAUNCHES = "b5.launches"
 """The counter (``utils.metrics``) of the launches of the CUDA kernel B5
@@ -87,25 +86,18 @@ def reset_launches() -> None:
     metrics.reset(LAUNCHES)
 
 
+_B5 = launch.Kernel("kernel_bench", "kernel_bench_variant",
+                    (INT, PTR, I64) + (PTR,) * 3 + (INT,) * 3 + (F32,) * 3
+                    + (PTR,) * 4, LAUNCHES)
+
+
 def _check(records, starts, counts, ids, cfg: RenderConfig, variant: str):
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r} (one of {VARIANTS})")
-    cr._check_inputs(records, starts, counts, ids, cfg)
+    cr.check_inputs(records, starts, counts, ids, cfg)
     if records.shape[0] != NC + 8:
         raise ValueError(f"B5 takes NC = {NC} records [{NC + 8}, S], got "
                          f"{tuple(records.shape)}")
-
-
-@functools.cache
-def _kernel():
-    """B5's C entry point, built and loaded on first use."""
-    from .. import _build
-    fn = _build.load("kernel_bench").kernel_bench_variant
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 4)
-    return fn
 
 
 def variant_cuda(records, tile_starts, tile_counts, tile_ids,
@@ -114,26 +106,18 @@ def variant_cuda(records, tile_starts, tile_counts, tile_ids,
     (``cuda_rasterize.composite_fwd``) with NC = 3, all on one CUDA device.
     Returns ``(colors [T, P, 3], t [T, P, 1], exit_k [T] int32)``."""
     _check(records, tile_starts, tile_counts, tile_ids, cfg, variant)
-    cr.check_cuda_launch(records, "variant_cuda")
-    fn = _kernel()
-    s = records.shape[1]
+    launch.check_cuda_launch(records, "variant_cuda")
     t = tile_starts.shape[0]
     p = cfg.tile_size * cfg.tile_size
     dev = records.device
     colors = torch.empty((t, p, NC), dtype=torch.float32, device=dev)
     trans = torch.empty((t, p, 1), dtype=torch.float32, device=dev)
     exit_k = torch.empty((t,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(VARIANTS.index(variant), records.data_ptr(), s,
-                 tile_starts.data_ptr(), tile_counts.data_ptr(),
-                 tile_ids.data_ptr(), t, cfg.tile_size, cfg.tiles_x,
-                 cfg.min_alpha, _T_FLOOR, _EXIT_T, colors.data_ptr(),
-                 trans.data_ptr(), exit_k.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"kernel_bench kernel ({variant}) launch failed: "
-                           f"CUDA error {err}")
-    metrics.add(LAUNCHES)
+    _B5(dev, VARIANTS.index(variant), records.data_ptr(), records.shape[1],
+        tile_starts.data_ptr(), tile_counts.data_ptr(), tile_ids.data_ptr(),
+        t, cfg.tile_size, cfg.tiles_x, cfg.min_alpha, _T_FLOOR, cr.EXIT_T,
+        colors.data_ptr(), trans.data_ptr(), exit_k.data_ptr(),
+        what=f" ({variant})")
     return colors, trans, exit_k
 
 
@@ -141,7 +125,7 @@ def composite_variant_torch(records, tile_starts, tile_counts, tile_ids,
                             cfg: RenderConfig, variant: str):
     """The plain PyTorch version of B5's ``variant``, on any device: the
     same chunk windows, exits and outputs.  Tiles go
-    ``cuda_rasterize._GROUP_SIZE`` at a time, each group's chunk loop in
+    ``cuda_rasterize.GROUP_SIZE`` at a time, each group's chunk loop in
     lockstep, over the chunk's in-box pair-pixel entries."""
     _check(records, tile_starts, tile_counts, tile_ids, cfg, variant)
     s = records.shape[1]
@@ -159,12 +143,12 @@ def composite_variant_torch(records, tile_starts, tile_counts, tile_ids,
         return colors, trans_out, chunks_all.to(torch.int32)
     exit_k = torch.zeros((t,), dtype=torch.int32, device=dev)
     lane = torch.arange(chunk, device=dev)
-    for g0 in range(0, t, cr._GROUP_SIZE):
-        g1 = min(g0 + cr._GROUP_SIZE, t)
+    for g0 in range(0, t, cr.GROUP_SIZE):
+        g1 = min(g0 + cr.GROUP_SIZE, t)
         n_g = g1 - g0
         start, count = starts_all[g0:g1], counts_all[g0:g1]
         num_chunks = chunks_all[g0:g1]
-        x0, y0 = cr._tile_origins(tile_ids[g0:g1].long(), cfg)
+        x0, y0 = cr.tile_origins(tile_ids[g0:g1].long(), cfg)
         start_chunk = torch.div(start, chunk, rounding_mode="floor")
         trans = torch.ones((n_g * p,), dtype=torch.float32, device=dev)
         col = torch.zeros((NC, n_g * p), dtype=torch.float32, device=dev)
@@ -185,14 +169,14 @@ def composite_variant_torch(records, tile_starts, tile_counts, tile_ids,
                 # only the tiles with a pair in this chunk (order kept, so
                 # the entries stay grouped by pixel)
                 sel = window.any(dim=1).nonzero(as_tuple=True)[0]
-                ent = cr._chunk_pairs(rec[:, sel], window[sel], x0[sel],
-                                      y0[sel], NC, cfg)
+                ent = cr.chunk_pairs(rec[:, sel], window[sel], x0[sel],
+                                     y0[sel], NC, cfg)
                 seg = sel[ent["tile"]] * p + (ent["seg"] - ent["tile"] * p)
                 alpha = ent["alpha"]
                 if variant == "no_scan":
                     w = alpha * trans[seg]
                 else:
-                    excl, _, seg_u, total = cr._seg_scan(
+                    excl, _, seg_u, total = cr.seg_scan(
                         torch.log1p(-alpha), seg)
                     w = alpha * (torch.exp(excl) * trans[seg])
                     csum = torch.zeros_like(trans)
@@ -210,7 +194,7 @@ def composite_variant_torch(records, tile_starts, tile_counts, tile_ids,
             k_done = torch.where(active, torch.full_like(k_done, k), k_done)
             active = active & (k < num_chunks)
             if variant != "no_exit":
-                alive = trans.view(n_g, p).amax(dim=1) > _EXIT_T
+                alive = trans.view(n_g, p).amax(dim=1) > cr.EXIT_T
                 if variant == "exit_every4" and k % 4:
                     alive = torch.ones_like(alive)
                 active = active & alive
@@ -230,13 +214,9 @@ def build_variant(cfg: RenderConfig, variant: str):
         raise ValueError(f"unknown variant {variant!r} (one of {VARIANTS})")
 
     def run(records, tile_starts, tile_counts, tile_ids):
-        if records.is_cuda:
-            return variant_cuda(records, tile_starts, tile_counts, tile_ids,
-                                cfg, variant)
-        if records.device.type == "cpu":
-            return composite_variant_torch(records, tile_starts, tile_counts,
-                                           tile_ids, cfg, variant)
-        raise ValueError(f"no compositor for device {records.device}")
+        return launch.dispatch(records, variant_cuda,
+                               composite_variant_torch)(
+            records, tile_starts, tile_counts, tile_ids, cfg, variant)
 
     return run
 

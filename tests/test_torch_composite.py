@@ -438,6 +438,78 @@ def test_cuda_wrappers_take_every_side(wrapper, tile):
         assert torch.equal(out[2], exit_k)
 
 
+def _c_argtypes(symbol):
+    """The ctypes of the parameters of ``csrc/``'s ``extern "C"`` entry
+    point ``symbol``, read from its source."""
+    import ctypes
+    import re
+
+    from gaussiansplats3d_tpu_torch import _build
+    text = "".join(p.read_text() for p in _build.CSRC.glob("*.cu"))
+    params = re.search(rf'extern "C" int {symbol}\((.*?)\)\s*\{{', text,
+                       re.S).group(1).split(",")
+    return tuple(ctypes.c_void_p if "*" in q
+                 else ctypes.c_longlong if "long long" in q
+                 else ctypes.c_float if "float" in q else ctypes.c_int
+                 for q in params)
+
+
+@pytest.mark.parametrize("lib", ["composite_fwd", "composite_bwd",
+                                 "surfel_fwd", "surfel_bwd", "kernel_bench",
+                                 "gather_bwd"])
+def test_each_kernel_declared_once_and_refuses_cpu(lib):
+    """Each kernel library is declared exactly once through the launch
+    seam (render/launch.py), with its C signature as csrc/ writes it, its
+    launch counter and the launches a call makes; its ``*_cuda`` wrapper
+    refuses CPU tensors with a ValueError that asks for CUDA tensors and
+    launches nothing."""
+    import ast
+    from pathlib import Path
+
+    from gaussiansplats3d_tpu_torch import _build
+    from gaussiansplats3d_tpu_torch.render import binning
+    from gaussiansplats3d_tpu_torch.render import cuda_surfel as cs
+    from gaussiansplats3d_tpu_torch.render import launch
+    from gaussiansplats3d_tpu_torch.tools import kernel_bench as kb
+    assert set(launch.DECLARED) == set(_build.KERNELS)
+    pkg = Path(gt.__file__).parent
+    declared = [node.args[0].value for p in pkg.rglob("*.py")
+                for node in ast.walk(ast.parse(p.read_text()))
+                if isinstance(node, ast.Call)
+                and getattr(node.func, "attr", None) == "Kernel"]
+    assert declared.count(lib) == 1
+    k = launch.DECLARED[lib]
+    assert k.argtypes == _c_argtypes(k.symbol)
+    cfg = gt.RenderConfig(width=64, height=32, tile_size=32)
+    ids = torch.arange(2, dtype=torch.int32)
+    starts = torch.tensor([0, 128], dtype=torch.int32)
+    counts = torch.zeros(2, dtype=torch.int32)
+    exit_k, logt = torch.zeros(2, dtype=torch.int32), torch.zeros(2, 1024)
+    rec11, rec17 = torch.zeros(11, 256), torch.zeros(17, 256)
+    layout = binning.SlotLayout(n=4, lanes=1, aux_cap=0, pad=124)
+    counter, launches, call = {
+        "composite_fwd": (cr.LAUNCHES, 1, lambda: cr.composite_fwd_cuda(
+            rec11, starts, counts, ids, cfg)),
+        "composite_bwd": (cr.BWD_LAUNCHES, 1, lambda: cr.composite_bwd_cuda(
+            rec11, starts, counts, ids, logt, exit_k, torch.zeros(2, 4, 1024),
+            cfg)),
+        "surfel_fwd": (cs.LAUNCHES, 1, lambda: cs.composite_surfel_fwd_cuda(
+            rec17, starts, counts, ids, cfg)),
+        "surfel_bwd": (cs.BWD_LAUNCHES, 1,
+                       lambda: cs.composite_surfel_bwd_cuda(
+                           rec17, starts, counts, ids, logt, exit_k,
+                           torch.zeros(2, 1024, 3), logt, cfg)),
+        "kernel_bench": (kb.LAUNCHES, 1, lambda: kb.variant_cuda(
+            rec11, starts, counts, ids, cfg, "full")),
+        "gather_bwd": (binning.LAUNCHES, 2, lambda: binning.gather_bwd_cuda(
+            torch.zeros(11, 128), torch.arange(128), layout))}[lib]
+    assert (k.counter, k.launches) == (counter, launches)
+    before = metrics.total(counter)
+    with pytest.raises(ValueError, match="needs CUDA tensors$"):
+        call()
+    assert metrics.total(counter) == before
+
+
 def test_walk_exits_of_the_second_pass_records():
     """The records of the walk's second-pass case (walk_exit_records), on
     the plain B1: the tile exits after chunk 6 of 7, the exit of sub-tile
@@ -452,7 +524,7 @@ def test_walk_exits_of_the_second_pass_records():
     assert k_sub[0, WALK_SUB] == 6 and second.tolist() == [WALK_SUB]
     assert set(k_sub[0].tolist()) == {1, 6}
     # T died below the floor outside the sub-tile: B2 replays there
-    assert float(logt.min()) < cr._CS_FLOOR
+    assert float(logt.min()) < cr.CS_FLOOR
 
 
 def port_pairs(device, tile, seed, big=0.0, n=3000, width=200, height=150):

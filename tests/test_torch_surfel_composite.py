@@ -372,7 +372,7 @@ def test_walk_exits_of_the_second_pass_surfels():
     assert exit_k.tolist() == [6]
     assert k_sub[0, WALK_SUB] == 6 and second.tolist() == [WALK_SUB]
     assert set(k_sub[0].tolist()) == {1, 6}
-    assert float(logt.min()) < cr._CS_FLOOR
+    assert float(logt.min()) < cr.CS_FLOOR
 
 
 def assert_cuda_b3_matches_plain(cfg, inputs):

@@ -122,7 +122,7 @@ WALK_TILE, WALK_SUB = 128, 10
 def walk_exit_boxes(seed=13):
     """Slots 0..299: pairs of opacity 0.97 whose boxes cover the four
     rectangles around sub-tile (2, 2) in turn (32 a rectangle in chunk 0:
-    every other pixel's T dies there, below exp(_CS_FLOOR)); slots
+    every other pixel's T dies there, below exp(CS_FLOOR)); slots
     300..799: pairs of opacity 0.015-0.025 whose boxes cover that sub-tile
     alone, so its T falls under 1e-4 only after ~450 of them, in chunk 5.
     Every box is flat: alpha is the opacity wherever the box holds the
@@ -168,7 +168,7 @@ def cull_case(cfg, seed):
     ts = cfg.tile_size
     npix = ts * ts
     rects = cr.warp_rects(cfg)
-    tx, ty = cr._tile_origins(tile, cfg)
+    tx, ty = cr.tile_origins(tile, cfg)
     p = torch.arange(npix)
     px = tx[:, None] + (p % ts).float() + 0.5                   # [n, P]
     py = ty[:, None] + (p // ts).float() + 0.5
